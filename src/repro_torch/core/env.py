@@ -1,0 +1,85 @@
+"""Environment-variable parsing shared by every QUIPT_* gate of the port.
+
+The port reads its own knobs, all named ``QUIPT_*``, and never a
+``QUIP_*`` one: the reference package's resolvers reject values they do
+not know (``cuda`` among them), so one shared ``QUIP_*_IMPL`` variable
+could not serve both packages in one process.
+
+:func:`env_choice` parses enumerated values.  Unset means the default;
+any other value raises instead of silently picking one.
+
+:data:`ENV_REGISTRY` is the one catalog of every ``QUIPT_*`` knob the port
+reads: name, kind, default, accepted values, owning module, one-line doc.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Dict, Sequence, Tuple
+
+__all__ = ["ENV_REGISTRY", "EnvKnob", "env_choice"]
+
+
+def env_choice(name: str, choices: Sequence[str], default: str) -> str:
+    """Enumerated env var ``name``: one of ``choices`` (any case).
+
+    Unset (or empty) returns ``default``; any other value raises
+    ``ValueError`` — a typo'd impl name must not silently pick a default.
+    """
+    raw = os.environ.get(name)
+    if raw is None or raw.strip() == "":
+        return default
+    value = raw.strip().lower()
+    if value in choices:
+        return value
+    raise ValueError(
+        f"{name}={raw!r} is not a valid choice (expected one of {sorted(choices)})"
+    )
+
+
+# --------------------------------------------------------------------------- #
+# the QUIPT_* knob registry
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class EnvKnob:
+    """One registered ``QUIPT_*`` environment knob.
+
+    ``kind`` is the parser family (``choice``);
+    ``default`` is the human-readable unset behaviour; ``choices`` lists
+    the accepted spellings for ``choice`` knobs; ``owner`` names the module
+    whose resolver reads it."""
+
+    name: str
+    kind: str
+    default: str
+    doc: str
+    choices: Tuple[str, ...] = ()
+    owner: str = ""
+
+
+def _registry(*knobs: EnvKnob) -> Dict[str, EnvKnob]:
+    out: Dict[str, EnvKnob] = {}
+    for knob in knobs:
+        if knob.name in out:
+            raise ValueError(f"duplicate ENV_REGISTRY knob {knob.name}")
+        out[knob.name] = knob
+    return out
+
+
+#: Every QUIPT_* knob the port reads.
+ENV_REGISTRY: Dict[str, EnvKnob] = _registry(
+    EnvKnob("QUIPT_KNN_IMPL", "choice", "numpy",
+            "KNN neighbour-aggregation dispatch; only numpy is ported",
+            choices=("numpy",), owner="kernels/ops.py"),
+    EnvKnob("QUIPT_BLOOM_IMPL", "choice", "auto (cuda on a CUDA tensor, "
+            "ref on a CPU tensor)", "bloom-probe dispatch for join pruning",
+            choices=("numpy", "ref", "cuda"), owner="kernels/ops.py"),
+    EnvKnob("QUIPT_DIST_IMPL", "choice", "auto (cuda on a CUDA tensor, "
+            "ref on a CPU tensor)", "masked KNN partial-distance dispatch",
+            choices=("numpy", "ref", "cuda"), owner="kernels/ops.py"),
+    EnvKnob("QUIPT_SANITIZE", "choice", "off",
+            "runtime sanitizers: 'locks' swaps every lock site for "
+            "instrumented wrappers feeding the lock-order graph",
+            choices=("off", "locks"), owner="analysis/lockcheck.py"),
+)

@@ -1,0 +1,17 @@
+from repro_torch.imputers.base import (
+    ImputationEngine,
+    ImputationService,
+    Imputer,
+    ImputeStore,
+)
+from repro_torch.imputers.mean import MeanImputer
+from repro_torch.imputers.knn import KnnImputer
+
+__all__ = [
+    "ImputationEngine",
+    "ImputationService",
+    "Imputer",
+    "ImputeStore",
+    "MeanImputer",
+    "KnnImputer",
+]
