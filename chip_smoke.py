@@ -6,16 +6,24 @@
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 against its plain torch version on the card, then answers the exp1 QUIP
 workload end to end through ``execute_quip`` (adaptive strategy, VF lists
-on, KNN imputer on the card): wifi at full scale and cdc at one NHANES
-cycle, once through the kernels and once through the plain versions, whose
-answers and imputation counts must agree.  A last phase checks the paper's
+on, KNN imputer on the card) on wifi at full scale and cdc at one NHANES
+cycle, in two configurations of the main path:
+
+* slice 1 -- the bloom probe and the masked distance on the card, the join
+  spine and the neighbour aggregation on the host (the defaults);
+* slice 2 -- also ``join_impl="cuda"`` (the hash-join kernels) and
+  ``agg_impl="cuda"`` (the neighbour mean/mode kernels).
+
+Each configuration runs once through the kernels and once through the plain
+versions, whose answers and imputation counts must agree; slice 2's wifi
+answers must also equal slice 1's.  A last phase checks the paper's
 correctness invariant (every QUIP answer equals the offline answer) on the
 generators' default sizes.
 
 Every phase passes or raises; any failure exits non-zero and prints no
 result.  The last lines are the card's name and power limit, one JSON line
 with each kernel's launches on the main path, its time, its plain
-version's time and its bound, and the result line
+version's time, its bound and a library call's time, and the result line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script exits non-zero.
 """
@@ -29,6 +37,7 @@ import subprocess
 import sys
 import time
 import traceback
+import types
 from collections import Counter
 from pathlib import Path
 
@@ -41,9 +50,22 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12  # CUDA cores, no tensor cores
 
+# the device functions of src/repro_torch/csrc, as the profiler names them
+PORT_KERNELS = ("bloom_probe_kernel", "masked_distance_kernel",
+                "join_insert_kernel", "join_place_kernel",
+                "join_probe_kernel", "join_emit_kernel",
+                "neighbor_mean_kernel", "neighbor_mode_kernel")
+
 KNN_COST = 2e-3  # simulated seconds per KNN value, as benchmarks/common.py
 WIFI_FULL = dict(n_users=4000, n_wifi=1_000_000, n_occ=4000, n_rooms=60)
 CDC_CYCLE = dict(n_demo=10_000, n_labs=10_000, n_exams=10_000)
+
+# the two configurations of the main path, each with its plain twin:
+# (join_impl, agg_impl, distance impl, bloom_impl); None is the default
+SLICE1 = dict(join_impl=None, agg_impl=None, impl=None, bloom_impl=None)
+PLAIN1 = dict(join_impl=None, agg_impl=None, impl="ref", bloom_impl="ref")
+SLICE2 = dict(join_impl="cuda", agg_impl="cuda", impl=None, bloom_impl=None)
+PLAIN2 = dict(join_impl="ref", agg_impl="ref", impl="ref", bloom_impl="ref")
 
 
 @contextlib.contextmanager
@@ -206,74 +228,351 @@ def time_distance(kd, kref, q, qm, r, rm):
             "shape": f"({nq}, {nr}, {d})"}
 
 
+# hash join: the reference tests' cases (tests/test_hash_join.py), the
+# engine's two missing-key sentinels, and one call at the wifi spine's size
+JOIN_CASES = {
+    "empty build": ([], [1, 2, 3]),
+    "empty probe": ([1, 2, 3], []),
+    "singleton": ([5], [5]),
+    "absent keys": ([1, 2, 3], [4, 5, 6, 7]),
+    "all-duplicate build": ([7] * 40, [7, 8, 7, 7]),
+    "all-duplicate both": ([3] * 25, [3] * 17),
+    "negative and extreme": (
+        [-(2**62), -1, 0, 1, 2**62, -(2**62), -(2**63), 2**63 - 1],
+        [0, -(2**62), 2**62, -5, -1, -(2**63), 2**63 - 1]),
+    "sentinels": ([-(2**62)] * 65 + [4, 9, 4, -(2**61)],
+                  [-(2**61)] * 20 + [4, 9, -(2**62)]),
+}
+
+
+def spine_like_keys(seed: int = 5, n_build: int = 920_468,
+                    n_probe: int = 243_270, run: int = 831):
+    """Keys shaped like the largest join of the wifi spine at full scale:
+    920,468 build keys with a run of 831 copies of -1 and 65 missing-key
+    sentinels, 243,270 probe keys, some -1 and some probe sentinels."""
+    rng = np.random.default_rng(seed)
+    build = rng.integers(0, 400_000, n_build)
+    pos = rng.choice(n_build, run + 65, replace=False)
+    build[pos[:run]] = -1
+    build[pos[run:]] = -(2**62)
+    probe = rng.integers(0, 440_000, n_probe)
+    pos = rng.choice(n_probe, 100, replace=False)
+    probe[pos[:50]] = -1
+    probe[pos[50:]] = -(2**61)
+    return build.astype(np.int64), probe.astype(np.int64)
+
+
+def join_err(got, want, oracle, what: str) -> int:
+    """Largest |kernel - plain| over the pair indices; raises unless the
+    kernel's pairs equal the plain version's and the numpy multi_match
+    copy's, in order."""
+    err = 0
+    for g, w, o in zip(got, want, oracle):
+        g, w = g.cpu().numpy(), w.cpu().numpy()
+        if g.shape != w.shape or not np.array_equal(g, w):
+            raise AssertionError(f"hash_join differs from its plain version "
+                                 f"on {what}: {len(g)} vs {len(w)} pairs")
+        if not np.array_equal(g, o):
+            raise AssertionError(f"hash_join pairs on {what} are not in "
+                                 f"multi_match's order")
+        if len(g):
+            err = max(err, int(np.abs(g - w).max()))
+    return err
+
+
+def check_join(dev, hj, kref, kops) -> int:
+    err = 0
+    cases = dict(JOIN_CASES)
+    cases["wifi spine size"] = spine_like_keys()
+    # 1.2M build rows: past the size whose build cursors fit on chip
+    cases["1.2M build rows"] = spine_like_keys(n_build=1_200_000,
+                                               n_probe=20_000)
+    for what, (b, p) in cases.items():
+        b = np.asarray(b, dtype=np.int64)
+        p = np.asarray(p, dtype=np.int64)
+        bt = torch.from_numpy(b).to(dev)
+        pt = torch.from_numpy(p).to(dev)
+        got = hj.hash_join(bt, pt)
+        err = max(err, join_err(got, kref.hash_join_ref(bt, pt),
+                                kops.sort_join(b, p), what))
+        print(f"   hash_join == plain == multi_match on {what} "
+              f"({len(b)} x {len(p)} keys, {len(got[0])} pairs)", flush=True)
+    return err
+
+
+def time_join(dev, hj, kref, kops, b: np.ndarray, p: np.ndarray):
+    """Build and probe times at one call's keys: the kernels, the plain
+    sort-join's two halves, and the bounds of the two halves."""
+    bt = torch.from_numpy(b).to(dev)
+    pt = torch.from_numpy(p).to(dev)
+    table = hj.hash_join_build(bt)
+    got = hj.hash_join_probe(table, pt)
+    err = join_err(got, kref.hash_join_ref(bt, pt), kops.sort_join(b, p),
+                   "the main path's largest call")
+    total = len(got[0])
+    sorted_keys, order = kref.hash_join_build_ref(bt)
+    build_ms = cuda_ms(lambda: hj.hash_join_build(bt), reps=20)
+    build_plain = cuda_ms(lambda: kref.hash_join_build_ref(bt), reps=20)
+    probe_ms = cuda_ms(lambda: hj.hash_join_probe(table, pt), reps=20)
+    probe_plain = cuda_ms(
+        lambda: kref.hash_join_probe_ref(sorted_keys, order, pt), reps=20)
+    _, dup = np.unique(b, return_counts=True)
+    n, m = len(b), len(p)
+    # build: read the keys, write the rows grouped by key and, per distinct
+    # key, its key, start and count; probe: read the probe keys and the
+    # matched build rows, write the int64 pairs
+    build_bound = bound_ms(nbytes=8 * n + 4 * n + 20 * len(dup), ops=n)
+    probe_bound = bound_ms(nbytes=8 * m + 4 * total + 16 * total, ops=m)
+    shape = (f"build {n} x probe {m} keys, {total} pairs, "
+             f"{len(dup)} distinct build keys, max dup {int(dup.max())}")
+    return (
+        {"ms": build_ms, "plain_ms": build_plain, "bound_ms": build_bound[0],
+         "bound_by": build_bound[1], "err": err, "shape": shape},
+        {"ms": probe_ms, "plain_ms": probe_plain, "bound_ms": probe_bound[0],
+         "bound_by": probe_bound[1], "err": err, "shape": shape},
+    )
+
+
+def tie_rows(dev):
+    return torch.tensor([[9, 2, 2, 9], [5, 5, 1, 1], [-3, 7, 7, -3],
+                         [4, 3, 2, 1]], dtype=torch.int64, device=dev)
+
+
+def check_neighbor(dev, na, kref):
+    """Mean bitwise and mode exactly equal to the plain versions on ragged
+    shapes and on tie rows; returns the two largest |kernel - plain|."""
+    rng = np.random.default_rng(3)
+    mean_err, mode_err = 0.0, 0
+    for b, k in ((1, 1), (5, 4), (128, 5), (300, 9), (1024, 5), (4097, 13)):
+        vals = torch.from_numpy(
+            rng.normal(0.0, 100.0, (b, k)).astype(np.float32)).to(dev)
+        got, want = na.neighbor_mean(vals), kref.neighbor_mean_ref(vals)
+        if not torch.equal(got, want):
+            raise AssertionError(f"neighbor_mean not bitwise equal to its "
+                                 f"plain version at ({b}, {k})")
+        mean_err = max(mean_err, float((got - want).abs().max()))
+        labels = rng.integers(-(2**40), 2**40, 1 + b % 17)
+        codes = torch.from_numpy(
+            labels[rng.integers(0, len(labels), (b, k))]).to(dev)
+        got, want = na.neighbor_mode(codes), kref.neighbor_mode_ref(codes)
+        if not torch.equal(got, want):
+            raise AssertionError(f"neighbor_mode differs from its plain "
+                                 f"version at ({b}, {k})")
+        mode_err = max(mode_err, int((got - want).abs().max()))
+    got = na.neighbor_mode(tie_rows(dev)).cpu().tolist()
+    if got != [2, 1, -3, 1]:
+        raise AssertionError(f"neighbor_mode tie rule: got {got}")
+    print("   neighbor_mean bitwise == plain, neighbor_mode == plain at the "
+          "ragged shapes; mode ties go to the smallest value", flush=True)
+    return mean_err, mode_err
+
+
+def time_neighbor(na, kref, mean_vals, mode_vals):
+    b, k = mean_vals.shape
+    mean_err = float((na.neighbor_mean(mean_vals)
+                      - kref.neighbor_mean_ref(mean_vals)).abs().max())
+    mean = {
+        "ms": cuda_ms(lambda: na.neighbor_mean(mean_vals), reps=200),
+        "plain_ms": cuda_ms(lambda: kref.neighbor_mean_ref(mean_vals),
+                            reps=200),
+        "library_ms": cuda_ms(lambda: torch.mean(mean_vals, dim=1), reps=200),
+        "err": mean_err, "shape": f"({b}, {k}) float32",
+    }
+    mean["bound_ms"], mean["bound_by"] = bound_ms(nbytes=4 * b * k + 4 * b,
+                                                  ops=b * k)
+    b, k = mode_vals.shape
+    mode_err = int((na.neighbor_mode(mode_vals)
+                    - kref.neighbor_mode_ref(mode_vals)).abs().max())
+    mode = {
+        "ms": cuda_ms(lambda: na.neighbor_mode(mode_vals), reps=200),
+        "plain_ms": cuda_ms(lambda: kref.neighbor_mode_ref(mode_vals),
+                            reps=200),
+        # timed only: torch.mode promises no order among tied values
+        "library_ms": cuda_ms(lambda: torch.mode(mode_vals, dim=1), reps=200),
+        "err": mode_err, "shape": f"({b}, {k}) int64",
+    }
+    mode["bound_ms"], mode["bound_by"] = bound_ms(nbytes=8 * b * k + 8 * b,
+                                                  ops=b * k * k)
+    return mean, mode
+
+
 # --------------------------------------------------------------------------- #
 # end to end
 # --------------------------------------------------------------------------- #
-def run_workload(tables, queries, dev, impl, mods, label: str):
-    """Answer every query with a fresh engine; ``impl=None`` takes the
-    kernels (the default on a card), ``"ref"`` the plain versions."""
-    executor, imputers = mods
+class Launches:
+    """The six kernels' launch counters, set to 0 and read together."""
+
+    def __init__(self, bp, kd, hj, na):
+        self.mods = (bp, kd, hj, na)
+
+    def reset(self) -> None:
+        bp, kd, hj, na = self.mods
+        bp.launches = kd.launches = 0
+        hj.build_launches = hj.probe_launches = 0
+        na.mean_launches = na.mode_launches = 0
+
+    def read(self) -> dict:
+        bp, kd, hj, na = self.mods
+        return {"bloom_probe": bp.launches, "masked_distance": kd.launches,
+                "hash_join_build": hj.build_launches,
+                "hash_join_probe": hj.probe_launches,
+                "neighbor_mean": na.mean_launches,
+                "neighbor_mode": na.mode_launches}
+
+
+@contextlib.contextmanager
+def recording(kops):
+    """Keep, for the kernel-time phase, the main path's calls into the
+    kernels: the bloom probes' sizes, every join's sizes and the largest
+    join's keys, and the largest mean and mode inputs."""
+    rec = {"bloom": Counter(), "join": [], "join_keys": None, "mean": None,
+           "mode": None}
+    names = ("_bloom_probe_cuda", "_hash_join_cuda", "_neighbor_mean_cuda",
+             "_neighbor_mode_cuda")
+    orig = {n: getattr(kops, n) for n in names}
+
+    def bloom(bits, folded, **kw):
+        rec["bloom"][(folded.shape[0], kw["num_hashes"], kw["log2m"])] += 1
+        return orig["_bloom_probe_cuda"](bits, folded, **kw)
+
+    def join(b, p):
+        rec["join"].append((b.shape[0], p.shape[0]))
+        big = rec["join_keys"]
+        if big is None or b.shape[0] > len(big[0]):
+            rec["join_keys"] = (b.cpu().numpy(), p.cpu().numpy())
+        return orig["_hash_join_cuda"](b, p)
+
+    def agg(kind, name):
+        def call(vals):
+            if rec[kind] is None or vals.numel() > rec[kind].numel():
+                rec[kind] = vals.clone()
+            return orig[name](vals)
+        return call
+
+    patched = {"_bloom_probe_cuda": bloom, "_hash_join_cuda": join,
+               "_neighbor_mean_cuda": agg("mean", "_neighbor_mean_cuda"),
+               "_neighbor_mode_cuda": agg("mode", "_neighbor_mode_cuda")}
+    for n, fn in patched.items():
+        setattr(kops, n, fn)
+    try:
+        yield rec
+    finally:
+        for n, fn in orig.items():
+            setattr(kops, n, fn)
+
+
+@contextlib.contextmanager
+def frozen_clock(modules):
+    """Stop the wall clock the engine's adaptive cost model reads (as the
+    CPU twin tests do), so two paths decide from the simulated costs
+    alone."""
+    saved = [(m, m.time) for m in modules]
+    for m, _ in saved:
+        m.time = types.SimpleNamespace(perf_counter=lambda: 0.0)
+    try:
+        yield
+    finally:
+        for m, t in saved:
+            m.time = t
+
+
+def run_workload(tables, queries, dev, cfg, mods, label: str, quiet=False):
+    """Answer every query with a fresh engine in configuration ``cfg``;
+    returns ``[(answer rows, imputations, seconds)]``."""
+    executor, imputers = mods[:2]
     out = []
     for i, q in enumerate(queries):
         engine = imputers.ImputationEngine(
             {t: r.copy() for t, r in tables.items()},
             default=lambda: imputers.KnnImputer(
-                k=5, cost_per_value=KNN_COST, impl=impl, device=dev))
+                k=5, cost_per_value=KNN_COST, impl=cfg["impl"],
+                agg_impl=cfg["agg_impl"], device=dev))
         t0 = time.perf_counter()
         res = executor.execute_quip(q, tables, engine, strategy="adaptive",
-                                    use_vf=True, bloom_impl=impl, device=dev)
+                                    use_vf=True, bloom_impl=cfg["bloom_impl"],
+                                    join_impl=cfg["join_impl"], device=dev)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         rows = res.answer_tuples()
         c = res.counters
-        out.append((rows, c.imputations))
-        print(f"   {label} q{i}: imputations={c.imputations} "
-              f"filtered_by_bloom={c.filtered_by_bloom} rows={len(rows)} "
-              f"digest={digest(rows)} seconds={secs:.3f}", flush=True)
+        out.append((rows, c.imputations, secs))
+        if not quiet:
+            print(f"   {label} q{i}: imputations={c.imputations} "
+                  f"filtered_by_bloom={c.filtered_by_bloom} rows={len(rows)} "
+                  f"join_impl={c.join_impl} digest={digest(rows)} "
+                  f"seconds={secs:.3f}", flush=True)
     return out
 
 
-def end_to_end(name, tables, queries, dev, mods, bp, kd):
-    bp.launches = 0
-    kd.launches = 0
-    kernel = run_workload(tables, queries, dev, None, mods, f"{name} kernels")
-    launches = {"bloom_probe": bp.launches, "masked_distance": kd.launches}
-    print(f"   {name} launches on the kernel path: {launches}", flush=True)
-    for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"{name}: kernel {k} was never launched")
-    plain = run_workload(tables, queries, dev, "ref", mods, f"{name} plain")
-    if bp.launches != launches["bloom_probe"] or \
-            kd.launches != launches["masked_distance"]:
-        raise AssertionError(f"{name}: the plain path launched a kernel")
-    for i, ((rk, ik), (rp, ip)) in enumerate(zip(kernel, plain)):
-        if rk != rp or ik != ip:
-            raise AssertionError(
-                f"{name} q{i}: kernel path ({len(rk)} rows, {ik} "
-                f"imputations) differs from plain path ({len(rp)} rows, "
-                f"{ip} imputations)")
-    print(f"   {name}: kernel and plain paths agree on every answer and "
-          f"imputation count", flush=True)
-    return launches
+def end_to_end(name, tables, queries, dev, mods, launches, kernel_cfg,
+               plain_cfg, expect, label):
+    """The kernel path of one configuration, with the six counters set to
+    0 just before it and read just after, then its plain twin, which must
+    launch nothing and give the same answers and imputation counts."""
+    launches.reset()
+    kernel = run_workload(tables, queries, dev, kernel_cfg, mods,
+                          f"{name} {label} kernels")
+    counts = launches.read()
+    print(f"   {name} {label} launches on the kernel path: {counts}",
+          flush=True)
+    for k in expect:
+        if counts[k] <= 0:
+            raise AssertionError(f"{name} {label}: kernel {k} was never "
+                                 f"launched")
+    plain = run_workload(tables, queries, dev, plain_cfg, mods,
+                         f"{name} {label} plain")
+    if launches.read() != counts:
+        raise AssertionError(f"{name} {label}: the plain path launched a "
+                             f"kernel")
+    for i, ((rk, _, _), (rp, _, _)) in enumerate(zip(kernel, plain)):
+        if rk != rp:
+            raise AssertionError(f"{name} {label} q{i}: kernel path "
+                                 f"({len(rk)} rows) and plain path "
+                                 f"({len(rp)} rows) answer differently")
+    if [r[1] for r in kernel] != [r[1] for r in plain]:
+        # the adaptive cost model reads measured join and imputation
+        # times: compare the counts again with the engine's clock stopped
+        print(f"   {name} {label}: imputation counts differ with the clock "
+              f"running ({[r[1] for r in kernel]} vs "
+              f"{[r[1] for r in plain]}); comparing them with the clock "
+              f"stopped", flush=True)
+        with frozen_clock(mods[2]):
+            fk = run_workload(tables, queries, dev, kernel_cfg, mods, "",
+                              quiet=True)
+            fp = run_workload(tables, queries, dev, plain_cfg, mods, "",
+                              quiet=True)
+        for i, (a, b) in enumerate(zip(fk, fp)):
+            if a[:2] != b[:2]:
+                raise AssertionError(
+                    f"{name} {label} q{i}: with the clock stopped the kernel "
+                    f"path ({len(a[0])} rows, {a[1]} imputations) differs "
+                    f"from the plain path ({len(b[0])} rows, {b[1]})")
+        print(f"   {name} {label}: with the clock stopped both paths make "
+              f"{[r[1] for r in fk]} imputations", flush=True)
+    print(f"   {name} {label}: kernel and plain paths agree on every answer "
+          f"and imputation count", flush=True)
+    return counts, kernel
 
 
-def profile_query(tables, q, dev, mods, label: str) -> None:
-    """One query of the kernel path under ``torch.profiler``: wall seconds,
+def profile_query(tables, q, dev, mods, cfg, label: str) -> None:
+    """One query of a kernel path under ``torch.profiler``: wall seconds,
     device-busy seconds (the sum of device-side event time), the idle
     share, and the device time by kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    executor, imputers = mods
+    executor, imputers = mods[:2]
     engine = imputers.ImputationEngine(
         {t: r.copy() for t, r in tables.items()},
-        default=lambda: imputers.KnnImputer(k=5, cost_per_value=KNN_COST,
-                                            device=dev))
+        default=lambda: imputers.KnnImputer(
+            k=5, cost_per_value=KNN_COST, agg_impl=cfg["agg_impl"],
+            device=dev))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         executor.execute_quip(q, tables, engine, strategy="adaptive",
-                              use_vf=True, device=dev)
+                              use_vf=True, join_impl=cfg["join_impl"],
+                              device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -289,33 +588,48 @@ def profile_query(tables, q, dev, mods, label: str) -> None:
     if not rows:
         print("   the profiler recorded no device time: device share not "
               "measured", flush=True)
-    for e in sorted(rows, key=dev_us, reverse=True)[:10]:
+    top = sorted(rows, key=dev_us, reverse=True)
+    # the ten largest, then every kernel of the port's that is not among them
+    shown = top[:10] + [e for e in top[10:]
+                        if any(k in e.key for k in PORT_KERNELS)]
+    for e in shown:
         print(f"   device {dev_us(e) / 1e3:10.2f} ms  {e.count:6d} calls  "
               f"{e.key[:90]}", flush=True)
 
 
-def check_against_offline(dataset, tables, queries, dev, mods):
-    executor, imputers = mods
+def check_against_offline(dataset, tables, queries, dev, mods, cfg, label):
+    executor, imputers = mods[:2]
     for i, q in enumerate(queries):
         answers = []
         for strategy in ("offline", "adaptive"):
             engine = imputers.ImputationEngine(
                 {t: r.copy() for t, r in tables.items()},
-                default=lambda: imputers.KnnImputer(k=5, device=dev))
+                default=lambda: imputers.KnnImputer(
+                    k=5, agg_impl=cfg["agg_impl"], device=dev))
             if strategy == "offline":
                 res = executor.execute_offline(q, tables, engine, device=dev)
             else:
                 res = executor.execute_quip(q, tables, engine,
-                                            strategy=strategy, device=dev)
+                                            strategy=strategy,
+                                            join_impl=cfg["join_impl"],
+                                            device=dev)
             answers.append(res.answer_tuples())
         if answers[0] != answers[1]:
-            raise AssertionError(f"{dataset} q{i}: QUIP answer differs from "
-                                 f"the offline answer")
+            raise AssertionError(f"{dataset} {label} q{i}: QUIP answer "
+                                 f"differs from the offline answer")
         for row in answers[1]:
             if any(isinstance(v, float) and not np.isfinite(v) for v in row):
                 raise AssertionError(f"{dataset} q{i}: non-finite answer")
-    print(f"   {dataset}: {len(queries)} QUIP answers == offline answers",
-          flush=True)
+    print(f"   {dataset} {label}: {len(queries)} QUIP answers == offline "
+          f"answers", flush=True)
+
+
+def kernel_entry(name, source, replaces, launches, t, err, library_ms):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": library_ms}
 
 
 def main() -> int:
@@ -329,10 +643,13 @@ def main() -> int:
         from repro_torch import imputers
         from repro_torch.data.queries import workload
         from repro_torch.data.synthetic import cdc_dataset, wifi_dataset
+        from repro_torch.imputers import base as imputers_base
         from repro_torch.imputers import knn as knn_mod
         from repro_torch.kernels import bloom_probe as bp
         from repro_torch.kernels import build
+        from repro_torch.kernels import hash_join as hj
         from repro_torch.kernels import knn_distance as kd
+        from repro_torch.kernels import neighbor_agg as na
         from repro_torch.kernels import ops as kops
         from repro_torch.kernels import ref as kref
         from repro_torch.kernels.hashing import fold64
@@ -340,7 +657,8 @@ def main() -> int:
         print(f"chip_smoke: the port is not beside this script ({exc})",
               file=sys.stderr)
         return 3
-    mods = (executor, imputers)
+    mods = (executor, imputers, (executor, imputers_base))
+    launches = Launches(bp, kd, hj, na)
     dev = torch.device("cuda")
     card = card_line()
     t_start = time.perf_counter()
@@ -355,7 +673,7 @@ def main() -> int:
               f"{time.perf_counter() - t0:.2f}s")
         for line in build.build_log().splitlines():
             if line.startswith(("== nvcc", "built", "reused")) or \
-                    "registers" in line:
+                    "registers" in line or "spill" in line:
                 print("   " + line.strip())
     with phase("data"):
         wifi, _ = wifi_dataset(np.random.default_rng(0), **WIFI_FULL)
@@ -379,61 +697,107 @@ def main() -> int:
             print(f"   masked_distance bitwise == plain at the {name} main-"
                   f"path shape {tuple(mats[0].shape)} x "
                   f"{tuple(mats[2].shape)}", flush=True)
+    with phase("hash_join against its plain version"):
+        join_check_err = check_join(dev, hj, kref, kops)
+    with phase("neighbor_mean / neighbor_mode against their plain versions"):
+        mean_check_err, mode_check_err = check_neighbor(dev, na, kref)
 
-    # record the probe sizes the main path hands the bloom kernel
-    probe_sizes = Counter()
-    bloom_cuda = kops._bloom_probe_cuda
-
-    def recording_probe(bits, folded, **kw):
-        probe_sizes[(folded.shape[0], kw["num_hashes"], kw["log2m"])] += 1
-        return bloom_cuda(bits, folded, **kw)
-
-    kops._bloom_probe_cuda = recording_probe
-    try:
-        with phase("end to end: wifi at full scale"):
-            launches = end_to_end("wifi", wifi, wifi_q, dev, mods, bp, kd)
-    finally:
-        kops._bloom_probe_cuda = bloom_cuda
-    with phase("end to end: cdc, one NHANES cycle"):
-        cdc_launches = end_to_end("cdc", cdc, cdc_q, dev, mods, bp, kd)
-    with phase("profile: wifi q1 on the kernel path"):
-        profile_query(wifi, wifi_q[1], dev, mods, "wifi q1")
+    with recording(kops) as rec:
+        with phase("end to end: wifi at full scale, slice 1"):
+            s1_wifi, wifi1 = end_to_end(
+                "wifi", wifi, wifi_q, dev, mods, launches, SLICE1, PLAIN1,
+                ("bloom_probe", "masked_distance"), "slice 1")
+        with phase("end to end: wifi at full scale, slice 2 (join and "
+                   "aggregation on the card)"):
+            s2_wifi, wifi2 = end_to_end(
+                "wifi", wifi, wifi_q, dev, mods, launches, SLICE2, PLAIN2,
+                ("bloom_probe", "masked_distance", "hash_join_build",
+                 "hash_join_probe", "neighbor_mode"), "slice 2")
+            for i, (a, b) in enumerate(zip(wifi1, wifi2)):
+                if a[0] != b[0]:
+                    raise AssertionError(f"wifi q{i}: slice 2's answer "
+                                         f"differs from slice 1's")
+            print("   wifi: slice 2's answers equal slice 1's on all six "
+                  "queries", flush=True)
+        with phase("end to end: cdc, one NHANES cycle, slice 1"):
+            s1_cdc, _ = end_to_end(
+                "cdc", cdc, cdc_q, dev, mods, launches, SLICE1, PLAIN1,
+                ("masked_distance",), "slice 1")
+        with phase("end to end: cdc, one NHANES cycle, slice 2"):
+            s2_cdc, _ = end_to_end(
+                "cdc", cdc, cdc_q, dev, mods, launches, SLICE2, PLAIN2,
+                ("masked_distance", "hash_join_build", "hash_join_probe",
+                 "neighbor_mean"), "slice 2")
+    main_launches = {k: s2_wifi[k] + s2_cdc[k] for k in s2_wifi}
+    for k, v in main_launches.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} was never launched on the "
+                                 f"slice 2 main path")
+    with phase("profile: wifi q1 on the kernel paths"):
+        profile_query(wifi, wifi_q[1], dev, mods, SLICE1, "wifi q1 slice 1")
+        profile_query(wifi, wifi_q[1], dev, mods, SLICE2, "wifi q1 slice 2")
     with phase("correctness: QUIP == offline at the generators' defaults"):
         for ds, gen in (("wifi", wifi_dataset), ("cdc", cdc_dataset)):
             small, _ = gen()
-            check_against_offline(
-                ds, small, workload(ds, small, kind="random", n_queries=6,
-                                    seed=7), dev, mods)
+            small_q = workload(ds, small, kind="random", n_queries=6, seed=7)
+            for cfg, label in ((SLICE1, "slice 1"), (SLICE2, "slice 2")):
+                check_against_offline(ds, small, small_q, dev, mods, cfg,
+                                      label)
 
     with phase("kernel times at the main path's shapes"):
-        n, num_hashes, log2m = max(probe_sizes)
-        print(f"   main-path bloom probes: {sum(probe_sizes.values())} "
+        n, num_hashes, log2m = max(rec["bloom"])
+        print(f"   main-path bloom probes: {sum(rec['bloom'].values())} "
               f"calls, largest n={n}", flush=True)
+        sizes = rec["join"]
+        print(f"   main-path hash joins: {len(sizes)} calls, largest build "
+              f"{max(s[0] for s in sizes)}, largest probe "
+              f"{max(s[1] for s in sizes)}", flush=True)
         bloom_t = time_bloom(dev, bp, kref, fold64, n, num_hashes, log2m)
         dist_t = time_distance(kd, kref, *main_shapes["wifi"])
-        for name, t in (("bloom_probe", bloom_t), ("masked_distance", dist_t)):
+        build_t, probe_t = time_join(dev, hj, kref, kops, *rec["join_keys"])
+        mean_t, mode_t = time_neighbor(na, kref, rec["mean"], rec["mode"])
+        for name, t in (("bloom_probe", bloom_t), ("masked_distance", dist_t),
+                        ("hash_join_build", build_t),
+                        ("hash_join_probe", probe_t),
+                        ("neighbor_mean", mean_t), ("neighbor_mode", mode_t)):
+            lib = t.get("library_ms")
             print(f"   {name} at {t['shape']}: median kernel {t['ms']:.4f} "
                   f"ms, plain {t['plain_ms']:.4f} ms, bound "
-                  f"{t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
-    print(f"   cdc launches: {cdc_launches}")
+                  f"{t['bound_ms']:.5f} ms ({t['bound_by']})"
+                  + (f", library {lib:.4f} ms" if lib is not None else ""),
+                  flush=True)
+    print(f"   slice 1 launches: wifi {s1_wifi}, cdc {s1_cdc}")
+    print(f"   slice 2 launches: wifi {s2_wifi}, cdc {s2_cdc}")
     print(f"total {time.perf_counter() - t_start:.1f}s", flush=True)
 
+    csrc = "src/repro_torch/csrc/"
     kernels = [
-        {"name": "bloom_probe", "route": "cuda",
-         "source": "src/repro_torch/csrc/bloom_probe.cu",
-         "replaces": "src/repro/kernels/bloom_probe.py:41",
-         "launches": launches["bloom_probe"],
-         "max_abs_err": max(bloom_check_err, bloom_t["err"]),
-         "ms": bloom_t["ms"], "plain_ms": bloom_t["plain_ms"],
-         "bound_ms": bloom_t["bound_ms"], "bound_by": bloom_t["bound_by"],
-         "library_ms": None},
-        {"name": "masked_distance", "route": "cuda",
-         "source": "src/repro_torch/csrc/knn_distance.cu",
-         "replaces": "src/repro/kernels/knn_distance.py:87",
-         "launches": launches["masked_distance"], "max_abs_err": dist_err,
-         "ms": dist_t["ms"], "plain_ms": dist_t["plain_ms"],
-         "bound_ms": dist_t["bound_ms"], "bound_by": dist_t["bound_by"],
-         "library_ms": None},
+        kernel_entry("bloom_probe", csrc + "bloom_probe.cu",
+                     "src/repro/kernels/bloom_probe.py:41",
+                     main_launches["bloom_probe"], bloom_t,
+                     max(bloom_check_err, bloom_t["err"]), None),
+        kernel_entry("masked_distance", csrc + "knn_distance.cu",
+                     "src/repro/kernels/knn_distance.py:87",
+                     main_launches["masked_distance"], dist_t, dist_err,
+                     None),
+        kernel_entry("hash_join_build", csrc + "hash_join.cu",
+                     "src/repro/kernels/hash_join.py:120",
+                     main_launches["hash_join_build"], build_t,
+                     max(join_check_err, build_t["err"]), None),
+        kernel_entry("hash_join_probe", csrc + "hash_join.cu",
+                     "src/repro/kernels/hash_join.py:190",
+                     main_launches["hash_join_probe"], probe_t,
+                     max(join_check_err, probe_t["err"]), None),
+        kernel_entry("neighbor_mean", csrc + "neighbor_agg.cu",
+                     "src/repro/kernels/neighbor_agg.py:56",
+                     main_launches["neighbor_mean"], mean_t,
+                     max(mean_check_err, mean_t["err"]),
+                     mean_t["library_ms"]),
+        kernel_entry("neighbor_mode", csrc + "neighbor_agg.cu",
+                     "src/repro/kernels/neighbor_agg.py:84",
+                     main_launches["neighbor_mode"], mode_t,
+                     max(mode_check_err, mode_t["err"]),
+                     mode_t["library_ms"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

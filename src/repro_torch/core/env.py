@@ -70,8 +70,16 @@ def _registry(*knobs: EnvKnob) -> Dict[str, EnvKnob]:
 #: Every QUIPT_* knob the port reads.
 ENV_REGISTRY: Dict[str, EnvKnob] = _registry(
     EnvKnob("QUIPT_KNN_IMPL", "choice", "numpy",
-            "KNN neighbour-aggregation dispatch; only numpy is ported",
-            choices=("numpy",), owner="kernels/ops.py"),
+            "KNN neighbour-aggregation dispatch (mean/mode): numpy host "
+            "member, plain torch, or the CUDA kernels",
+            choices=("numpy", "ref", "cuda"), owner="kernels/ops.py"),
+    EnvKnob("QUIPT_JOIN_IMPL", "choice", "numpy (engine) / auto (kernel: "
+            "cuda on a CUDA device, ref on the CPU)",
+            "join-spine dispatch: numpy sort-join oracle, plain torch "
+            "sort-join, or the CUDA hash-join kernels; unset means numpy in "
+            "the engine (core/triggers.py) and the device default in "
+            "kernels/ops.py hash_join_match",
+            choices=("numpy", "ref", "cuda"), owner="core/triggers.py"),
     EnvKnob("QUIPT_BLOOM_IMPL", "choice", "auto (cuda on a CUDA tensor, "
             "ref on a CPU tensor)", "bloom-probe dispatch for join pruning",
             choices=("numpy", "ref", "cuda"), owner="kernels/ops.py"),

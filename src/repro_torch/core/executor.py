@@ -19,8 +19,9 @@ Correctness invariant (tested property): for any query/data/strategy the
 answer multiset equals the offline answer.
 
 The engine is host numpy, as in the reference package; ``device`` names
-where the bloom filters probe (and is validated like every entry point's:
-the default ``"cuda"`` raises where there is no card).  Compiled tensor
+where the bloom filters probe and, with ``join_impl`` ``ref`` or ``cuda``,
+where the join spine matches keys (it is validated like every entry
+point's: the default ``"cuda"`` raises where there is no card).  Compiled tensor
 plans are not ported: ``exec_impl="compiled"`` raises.
 """
 
@@ -201,7 +202,7 @@ class QuipExecutor:
             self.join_states[n.node_id] = JoinState(
                 n.node_id, l_attr, r_attr,
                 self.blooms[l_attr], self.blooms[r_attr],
-                join_impl=self.join_impl,
+                join_impl=self.join_impl, device=self.device,
             )
             self.join_side_tables[n.node_id] = (l_tabs, r_tabs)
 
@@ -618,7 +619,8 @@ class QuipExecutor:
                           build=len(b_keys), probe=len(probe_keys))
                   if tr.enabled else NULL_SPAN):
                 p_idx, b_idx = multi_match(
-                    b_keys, probe_keys, impl=self.join_impl
+                    b_keys, probe_keys, impl=self.join_impl,
+                    device=self.device,
                 )
             dt = time.perf_counter() - t0
             self.counters.join_tests += int(p_present.sum())
@@ -1329,7 +1331,7 @@ def execute_offline(
             rows = np.nonzero(rel.is_missing(a))[0]
             if len(rows):
                 rel.set_values(a, rows, engine.lookup(t, a, rel.tids[t][rows]))
-    body = evaluate_clean_body(query, clean)
+    body = evaluate_clean_body(query, clean, device=device)
     aux = None
     if query.aggregate is not None:
         aux = agg_aux_of(body, query.aggregate)
@@ -1345,11 +1347,11 @@ def execute_offline(
                            agg_aux=aux)
 
 
-def evaluate_clean(query: Query, tables: Dict[str, MaskedRelation]
-                   ) -> MaskedRelation:
+def evaluate_clean(query: Query, tables: Dict[str, MaskedRelation],
+                   device="cuda") -> MaskedRelation:
     """Independent relational oracle over clean (no-missing) tables: filter,
     join (in a connectivity-preserving order), project/aggregate."""
-    body = evaluate_clean_body(query, tables)
+    body = evaluate_clean_body(query, tables, device=device)
     if query.aggregate is not None:
         return _aggregate(body, query.aggregate)
     if query.projection:
@@ -1357,11 +1359,12 @@ def evaluate_clean(query: Query, tables: Dict[str, MaskedRelation]
     return body
 
 
-def evaluate_clean_body(query: Query, tables: Dict[str, MaskedRelation]
-                        ) -> MaskedRelation:
+def evaluate_clean_body(query: Query, tables: Dict[str, MaskedRelation],
+                        device="cuda") -> MaskedRelation:
     """The pre-aggregate/projection body of :func:`evaluate_clean`: filter
     each table, join in a connectivity-preserving order, return the full
-    joined relation."""
+    joined relation.  The joins take ``QUIPT_JOIN_IMPL`` (numpy unless set);
+    ``device`` is where a device member would run."""
     filtered: Dict[str, MaskedRelation] = {}
     for t in query.tables:
         rel = tables[t]
@@ -1398,7 +1401,7 @@ def evaluate_clean_body(query: Query, tables: Dict[str, MaskedRelation]
             my_attr, other_attr = hit.right_attr, hit.left_attr
         other = filtered[table_of(other_attr)]
         p_idx, b_idx = multi_match(
-            other.values(other_attr), cur.values(my_attr)
+            other.values(other_attr), cur.values(my_attr), device=device
         )
         cur = cur.take(p_idx).hstack(other.take(b_idx))
         done.add(table_of(other_attr))

@@ -19,54 +19,47 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from repro_torch.core.bloom import BloomFilter
+from repro_torch.core.env import env_choice
 from repro_torch.core.relation import MaskedRelation, concat_relations
 from repro_torch.core.schema import table_of
+from repro_torch.kernels import ops as kops
 
 __all__ = ["JoinState", "multi_match", "resolve_join_impl"]
 
 
+_JOIN_IMPLS = ("numpy", "ref", "cuda")
+
+
 def resolve_join_impl(impl: Optional[str] = None) -> str:
-    """Join-core dispatch: explicit ``impl``, else ``"numpy"`` (the
-    sort-join oracle).  Only ``numpy`` is ported: ``ref`` and ``cuda``
-    raise until the hash-join kernels are (ROADMAP Queue 2 item 2)."""
-    if impl is None:
-        impl = "numpy"
-    if impl in ("ref", "cuda"):
-        raise ValueError(
-            f"join impl {impl!r} is not ported: the hash-join kernels are "
-            f"ROADMAP Queue 2 item 2; only 'numpy' runs"
-        )
-    if impl != "numpy":
-        raise ValueError(f"unknown join impl {impl!r}")
-    return impl
+    """Join-core dispatch: explicit ``impl`` > ``QUIPT_JOIN_IMPL`` >
+    ``"numpy"`` (the sort-join oracle).  ``"ref"`` / ``"cuda"`` route
+    through the kernel layer (``kernels.ops.hash_join_match``)."""
+    if impl is not None:
+        if impl not in _JOIN_IMPLS:
+            raise ValueError(f"unknown join impl {impl!r}")
+        return impl
+    return env_choice("QUIPT_JOIN_IMPL", _JOIN_IMPLS, "numpy")
 
 
 def multi_match(build_keys: np.ndarray, probe_keys: np.ndarray,
-                impl: Optional[str] = None
+                impl: Optional[str] = None, device="cuda"
                 ) -> Tuple[np.ndarray, np.ndarray]:
-    """All (probe_idx, build_idx) pairs with equal keys — vectorized hash-join
-    core (sort + searchsorted + ragged range expansion), probe-major with
-    build indices ascending within a probe."""
-    resolve_join_impl(impl)
-    if len(build_keys) == 0 or len(probe_keys) == 0:
-        z = np.zeros(0, dtype=np.int64)
-        return z, z
-    order = np.argsort(build_keys, kind="stable")
-    sk = build_keys[order]
-    lo = np.searchsorted(sk, probe_keys, "left")
-    hi = np.searchsorted(sk, probe_keys, "right")
-    counts = hi - lo
-    total = int(counts.sum())
-    if total == 0:
-        z = np.zeros(0, dtype=np.int64)
-        return z, z
-    probe_idx = np.repeat(np.arange(len(probe_keys), dtype=np.int64), counts)
-    starts = np.repeat(lo, counts)
-    offs = np.arange(total, dtype=np.int64) - np.repeat(
-        np.cumsum(counts) - counts, counts
-    )
-    build_idx = order[starts + offs]
-    return probe_idx, build_idx
+    """All (probe_idx, build_idx) pairs with equal keys — the hash-join
+    core, probe-major with build indices ascending within a probe.
+
+    ``impl`` (or ``QUIPT_JOIN_IMPL``) routes integer keys through the
+    kernel layer on ``device`` (the plain torch sort-join for ``ref``, the
+    hash-join kernels for ``cuda``); the numpy sort-join stays the
+    semantics oracle and takes every other key dtype."""
+    impl = resolve_join_impl(impl)
+    if (
+        impl != "numpy"
+        and np.issubdtype(np.asarray(build_keys).dtype, np.integer)
+        and np.issubdtype(np.asarray(probe_keys).dtype, np.integer)
+    ):
+        return kops.hash_join_match(build_keys, probe_keys, impl=impl,
+                                    device=device)
+    return kops.sort_join(np.asarray(build_keys), np.asarray(probe_keys))
 
 
 @dataclasses.dataclass
@@ -88,9 +81,10 @@ class JoinState:
 
     def __init__(self, node_id: int, left_attr: str, right_attr: str,
                  bloom_left: BloomFilter, bloom_right: BloomFilter,
-                 join_impl: Optional[str] = None):
+                 join_impl: Optional[str] = None, device="cuda"):
         self.node_id = node_id
         self.join_impl = join_impl
+        self.device = device
         self.sides: Dict[str, _Side] = {
             "L": _Side(left_attr),
             "R": _Side(right_attr),
@@ -165,7 +159,8 @@ class JoinState:
             return
         # match snapshot rows carrying these base tids
         p_idx, s_idx = multi_match(
-            snap_tids, np.asarray(tids, dtype=np.int64), impl=self.join_impl
+            snap_tids, np.asarray(tids, dtype=np.int64), impl=self.join_impl,
+            device=self.device,
         )
         if len(s_idx) == 0:
             return
@@ -220,7 +215,7 @@ class JoinState:
         cand_keys = keys[hit]
         p_idx, b_idx = multi_match(
             np.where(opresent, okeys, np.int64(-(2**62))), cand_keys,
-            impl=self.join_impl,
+            impl=self.join_impl, device=self.device,
         )
         if counters is not None:
             counters.trigger_joins += len(cand_rows)

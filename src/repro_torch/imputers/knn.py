@@ -6,12 +6,16 @@ dimensions — the imputation hot spot the paper measures (Fig. 2: KNN
 inference dominates query time) — via the ``masked_distance`` CUDA kernel on
 a card (the plain torch version on the CPU; see ``repro_torch.kernels``),
 then the ``k`` nearest with ties to the lowest index.  Neighbour aggregation
-(mean / categorical mode) is the numpy ``kernels.ops.neighbor_aggregate``
-member.
+(mean / categorical mode) is ``kernels.ops.neighbor_aggregate``: by default
+its numpy member, with ``agg_impl`` ``ref`` or ``cuda`` the plain torch
+version or the CUDA kernels on the imputer's device.
 
 The fitted matrices live on the imputer's device; per attribute the
-reference rows and kept columns are gathered there once, and each batch
-moves only its query row ids up and its neighbour ids down.
+reference rows and kept columns are gathered there once.  With the numpy
+aggregation each batch moves its query row ids up and its ``(b, k)``
+neighbour ids down; with a device aggregation the reference rows' targets
+stay on the device too, the neighbours are gathered there, and only the
+``(b,)`` imputed values come down.
 """
 
 from __future__ import annotations
@@ -51,6 +55,9 @@ class KnnImputer(Imputer):
         #          host targets of the reference rows)
         self._refs: Dict[str, Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                     np.ndarray]] = {}
+        # attr -> the reference rows' targets on the device (float32 for a
+        # float attribute, int64 for an integer one)
+        self._device_targets: Dict[str, torch.Tensor] = {}
 
     def fit(self, table: MaskedRelation) -> None:
         # standardization in host numpy float32, as in the reference, so
@@ -83,6 +90,7 @@ class KnnImputer(Imputer):
         self._std = np.asarray(state["std"], dtype=np.float32)
         self._cols = list(state["cols"])
         self._refs = {}
+        self._device_targets = {}
 
     def _reference(self, table: MaskedRelation, attr: str):
         ref = self._refs.get(attr)
@@ -99,11 +107,23 @@ class KnnImputer(Imputer):
             ref = self._refs[attr] = (r, rm, keep, tgt)
         return ref
 
+    def _targets_on_device(self, attr: str, tgt: np.ndarray,
+                           is_int: bool) -> torch.Tensor:
+        dev_tgt = self._device_targets.get(attr)
+        if dev_tgt is None:
+            host = tgt.astype(np.int64 if is_int else np.float32)
+            dev_tgt = torch.from_numpy(host).to(self.device)
+            self._device_targets[attr] = dev_tgt
+        return dev_tgt
+
     def impute_attr(self, table: MaskedRelation, attr: str, tids: np.ndarray
                     ) -> np.ndarray:
         r, rm, keep, tgt = self._reference(table, attr)
         out = np.zeros(len(tids), dtype=np.float64)
         is_int = not np.issubdtype(table.cols[attr].dtype, np.floating)
+        agg = kops.resolve_knn_impl(self.agg_impl)
+        if agg != "numpy":
+            tgt = self._targets_on_device(attr, tgt, is_int)
         k = min(self.k, r.shape[0])
         for lo in range(0, len(tids), self.batch):
             idx = torch.as_tensor(np.asarray(tids[lo : lo + self.batch],
@@ -112,8 +132,10 @@ class KnnImputer(Imputer):
             q = self._feat[idx][:, keep].contiguous()
             qm = self._mask[idx][:, keep].contiguous()
             _d, nn = kops.masked_knn(q, qm, r, rm, k=k, impl=self.impl)
-            neigh = tgt[nn.cpu().numpy()]  # (b, k) raw target values
+            # (b, k) raw target values, on the host for the numpy member
+            neigh = (tgt[nn.to(tgt.device)] if agg != "numpy"
+                     else tgt[nn.cpu().numpy()])
             out[lo : lo + len(idx)] = kops.neighbor_aggregate(
-                neigh, categorical=is_int, impl=self.agg_impl
+                neigh, categorical=is_int, impl=agg
             )
         return out

@@ -42,6 +42,18 @@ _SIGNATURES = {
                           _c_int, _c_int, _c_void_p],
     "quipt_masked_distance": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
                               _c_void_p, _c_int, _c_int, _c_int, _c_void_p],
+    "quipt_join_insert": [_c_void_p, _c_int64, _c_int, _c_void_p, _c_void_p,
+                          _c_void_p, _c_void_p],
+    "quipt_join_place": [_c_void_p, _c_int64, _c_void_p, _c_void_p, _c_int64,
+                         _c_void_p],
+    "quipt_join_probe": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                         _c_int64, _c_int, _c_void_p, _c_void_p, _c_void_p],
+    "quipt_join_emit": [_c_void_p, _c_int64, _c_void_p, _c_void_p, _c_void_p,
+                        _c_int64, _c_void_p, _c_void_p, _c_void_p],
+    "quipt_neighbor_mean": [_c_void_p, _c_int64, _c_int, _c_void_p,
+                            _c_void_p],
+    "quipt_neighbor_mode": [_c_void_p, _c_int64, _c_int, _c_void_p,
+                            _c_void_p],
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,80 @@
+"""KNN neighbour aggregation: wrappers of the CUDA kernels
+``csrc/neighbor_agg.cu``.
+
+Replaces the reference package's Pallas kernels ``neighbor_mean_pallas``
+and ``neighbor_mode_pallas`` (``repro/kernels/neighbor_agg.py``).  A CUDA
+tensor launches the kernel on the current stream; a CPU tensor takes the
+plain torch version (``ref.neighbor_mean_ref`` / ``ref.neighbor_mode_ref``),
+since the kernels exist only on the card.  The mean matches its plain
+version bit for bit, the mode exactly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref as _ref
+
+__all__ = ["mean_launches", "mode_launches", "neighbor_mean",
+           "neighbor_mode"]
+
+#: kernel launches since the counters were last set to 0
+mean_launches = 0
+mode_launches = 0
+
+_INT32_MAX = 2**31 - 1
+
+
+def _check(name: str, vals: torch.Tensor, dtype: torch.dtype) -> None:
+    if vals.dtype != dtype or vals.dim() != 2:
+        raise ValueError(f"{name} takes a 2-D {dtype} tensor, got "
+                         f"{vals.dtype} {tuple(vals.shape)}")
+    if not vals.is_contiguous():
+        raise ValueError(f"{name} takes a contiguous tensor")
+    if vals.shape[1] > _INT32_MAX:
+        raise ValueError(f"{name}: k={vals.shape[1]} exceeds int32")
+    if vals.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {vals.device}")
+
+
+def _launch(entry: str, vals: torch.Tensor, out: torch.Tensor) -> None:
+    from repro_torch.kernels import build
+
+    lib = build.library()
+    with torch.cuda.device(vals.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, entry)(vals.data_ptr(), vals.shape[0],
+                                 vals.shape[1], out.data_ptr(), stream)
+    build.check(rc, entry)
+
+
+def neighbor_mean(vals: torch.Tensor) -> torch.Tensor:
+    """``(b, k)`` float32 neighbour targets → ``(b,)`` float32 row means
+    (the sum in column order, then one division by ``k``)."""
+    global mean_launches
+    _check("neighbor_mean", vals, torch.float32)
+    if vals.device.type == "cpu":
+        return _ref.neighbor_mean_ref(vals)
+    out = torch.empty(vals.shape[0], dtype=torch.float32, device=vals.device)
+    if vals.shape[0] == 0:
+        return out
+    _launch("quipt_neighbor_mean", vals, out)
+    mean_launches += 1
+    return out
+
+
+def neighbor_mode(vals: torch.Tensor) -> torch.Tensor:
+    """``(b, k)`` int64 neighbour targets → ``(b,)`` int64 row modes, ties
+    to the smallest value."""
+    global mode_launches
+    _check("neighbor_mode", vals, torch.int64)
+    if vals.shape[1] == 0:
+        raise ValueError("neighbor_mode needs at least one column")
+    if vals.device.type == "cpu":
+        return _ref.neighbor_mode_ref(vals)
+    out = torch.empty(vals.shape[0], dtype=torch.int64, device=vals.device)
+    if vals.shape[0] == 0:
+        return out
+    _launch("quipt_neighbor_mode", vals, out)
+    mode_launches += 1
+    return out

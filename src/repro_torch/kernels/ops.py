@@ -9,13 +9,13 @@
                   launches the kernel or raises.
 
 Every op with ``impl=`` resolves it through a ``resolve_*_impl`` function:
-explicit ``impl`` > the ``QUIPT_<OP>_IMPL`` env knob > the default, which is
-``cuda`` for CUDA tensors and ``ref`` for CPU tensors.  Nothing falls back
-from the kernel to the plain version on the card.
-
-Ops that are not ported yet (the hash join, the neighbour-aggregation
-kernels) accept only their numpy member; asking for another raises and
-names the ROADMAP item that ports it.
+explicit ``impl`` > the ``QUIPT_<OP>_IMPL`` env knob > the default.  For
+the bloom probe, the masked distance and the hash join the default is
+``cuda`` for CUDA tensors and ``ref`` for CPU tensors; the neighbour
+aggregation defaults to ``numpy``, as in the reference package, and the
+engine's join spine (``core.triggers.resolve_join_impl``) defaults to the
+numpy sort-join.  Nothing falls back from the kernel to the plain version
+on the card.
 """
 
 from __future__ import annotations
@@ -28,21 +28,29 @@ import torch
 from repro_torch.core.env import env_choice
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.bloom_probe import bloom_probe as _bloom_probe_cuda
+from repro_torch.kernels.hash_join import hash_join as _hash_join_cuda
 from repro_torch.kernels.hashing import MULTIPLIERS, OFFSETS
 from repro_torch.kernels.knn_distance import (
     masked_distance as _masked_distance_cuda,
 )
+from repro_torch.kernels.neighbor_agg import (
+    neighbor_mean as _neighbor_mean_cuda,
+    neighbor_mode as _neighbor_mode_cuda,
+)
 
 __all__ = [
     "bloom_probe",
+    "hash_join_match",
     "masked_distance",
     "masked_knn",
     "neighbor_aggregate",
     "resolve_bloom_impl",
     "resolve_device",
     "resolve_dist_impl",
+    "resolve_join_impl",
     "resolve_knn_impl",
     "smallest_k",
+    "sort_join",
 ]
 
 _IMPLS = ("numpy", "ref", "cuda")
@@ -88,6 +96,15 @@ def resolve_dist_impl(impl: Optional[str] = None,
     return _resolve("QUIPT_DIST_IMPL", "distance", impl, device)
 
 
+def resolve_join_impl(impl: Optional[str] = None,
+                      device: torch.device = torch.device("cpu")) -> str:
+    """Kernel-level join dispatch: explicit ``impl`` > ``QUIPT_JOIN_IMPL``
+    > ``cuda`` on a CUDA device, ``ref`` on the CPU.  Distinct from the
+    engine-level ``core.triggers.resolve_join_impl``, whose unset default
+    is the numpy sort-join."""
+    return _resolve("QUIPT_JOIN_IMPL", "join", impl, device)
+
+
 def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
@@ -117,6 +134,57 @@ def bloom_probe(bits, folded, *, num_hashes: int, log2m: int,
         return _bloom_probe_cuda(bits, folded, num_hashes=num_hashes,
                                  log2m=log2m)
     return _ref.bloom_probe_ref(bits, folded, num_hashes, log2m)
+
+
+def sort_join(build_keys: np.ndarray, probe_keys: np.ndarray
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """The numpy member of the join: a host sort-join (stable argsort,
+    searchsorted, ragged range expansion) on the keys as given.  Every
+    ``(probe_idx, build_idx)`` int64 pair with equal keys, probe-major,
+    build index ascending within a probe."""
+    if len(build_keys) == 0 or len(probe_keys) == 0:
+        z = np.zeros(0, dtype=np.int64)
+        return z, z
+    order = np.argsort(build_keys, kind="stable")
+    sk = build_keys[order]
+    lo = np.searchsorted(sk, probe_keys, "left")
+    hi = np.searchsorted(sk, probe_keys, "right")
+    counts = hi - lo
+    total = int(counts.sum())
+    if total == 0:
+        z = np.zeros(0, dtype=np.int64)
+        return z, z
+    probe_idx = np.repeat(np.arange(len(probe_keys), dtype=np.int64), counts)
+    starts = np.repeat(lo, counts)
+    offs = np.arange(total, dtype=np.int64) - np.repeat(
+        np.cumsum(counts) - counts, counts
+    )
+    build_idx = order[starts + offs].astype(np.int64)
+    return probe_idx, build_idx
+
+
+def hash_join_match(build_keys, probe_keys, *, impl: Optional[str] = None,
+                    device="cuda") -> Tuple[np.ndarray, np.ndarray]:
+    """All ``(probe_idx, build_idx)`` pairs with equal int64 keys, as host
+    int64 arrays ordered by probe index, build index ascending within a
+    probe — bit-identical to ``core.triggers.multi_match``.
+
+    ``numpy`` sort-joins on the host; ``ref`` runs the plain torch
+    sort-join on ``device``; ``cuda`` the hash-join kernels (on a CPU
+    device, their plain version).  The device members hash or sort the
+    full int64 keys, so no fold collision needs a check afterwards."""
+    dev = torch.device(device)
+    impl = resolve_join_impl(impl, dev)
+    b = np.ascontiguousarray(np.asarray(build_keys, dtype=np.int64))
+    p = np.ascontiguousarray(np.asarray(probe_keys, dtype=np.int64))
+    if impl == "numpy" or len(b) == 0 or len(p) == 0:
+        return sort_join(b, p)
+    dev = resolve_device(dev)
+    bt = torch.from_numpy(b).to(dev)
+    pt = torch.from_numpy(p).to(dev)
+    join = _hash_join_cuda if impl == "cuda" else _ref.hash_join_ref
+    probe_idx, build_idx = join(bt, pt)
+    return probe_idx.cpu().numpy(), build_idx.cpu().numpy()
 
 
 def masked_distance(q, qm, r, rm, *, impl: Optional[str] = None):
@@ -181,15 +249,11 @@ def masked_knn(q, qm, r, rm, k: int, *, impl: Optional[str] = None
 
 def resolve_knn_impl(impl: Optional[str] = None) -> str:
     """KNN-aggregation dispatch: explicit ``impl`` > ``QUIPT_KNN_IMPL`` >
-    ``"numpy"``.  Only the numpy member is ported; the device members wait
-    for the neighbour-aggregation kernels (ROADMAP Queue 2 item 4)."""
+    ``"numpy"`` (the vectorized host member, as in the reference)."""
     if impl is None:
-        impl = env_choice("QUIPT_KNN_IMPL", ("numpy",), "numpy")
-    if impl != "numpy":
-        raise ValueError(
-            f"knn impl {impl!r} is not ported: only 'numpy' runs until the "
-            f"neighbour-aggregation kernels are (ROADMAP Queue 2 item 4)"
-        )
+        return env_choice("QUIPT_KNN_IMPL", _IMPLS, "numpy")
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown knn impl {impl!r}")
     return impl
 
 
@@ -206,14 +270,22 @@ def _mode_codes_numpy(codes: np.ndarray, num_classes: int) -> np.ndarray:
 _AGG_BUDGET = 1 << 24  # count entries per mode chunk (memory bound)
 
 
-def neighbor_aggregate(neigh: np.ndarray, *, categorical: bool,
+def neighbor_aggregate(neigh, *, categorical: bool,
                        impl: Optional[str] = None) -> np.ndarray:
-    """Aggregate a (b, k) neighbour-target matrix to (b,) imputed values:
-    float attributes take the per-row mean, dictionary-coded categorical
-    attributes the per-row mode with ties to the smallest value — the
-    reference package's numpy member, bit for bit."""
-    resolve_knn_impl(impl)
-    neigh = np.asarray(neigh)
+    """Aggregate a (b, k) neighbour-target matrix to (b,) imputed values,
+    returned as a host float64 array: float attributes take the per-row
+    mean, integer (categorical) attributes the per-row mode with ties to
+    the smallest value.
+
+    ``numpy`` (default) is the reference package's numpy member, bit for
+    bit (float64 mean).  ``ref`` and ``cuda`` take the matrix as a tensor
+    on its device and copy only the ``(b,)`` result to the host: a float32
+    mean (``ref.neighbor_mean_ref`` or its kernel, equal bit for bit) and
+    the int64 mode (exact, like every member's)."""
+    impl = resolve_knn_impl(impl)
+    if impl != "numpy":
+        return _neighbor_aggregate_torch(neigh, categorical, impl)
+    neigh = _host(neigh)
     if neigh.ndim != 2:
         raise ValueError(f"neighbor_aggregate expects (b, k), got {neigh.shape}")
     if neigh.shape[0] == 0:
@@ -231,3 +303,25 @@ def neighbor_aggregate(neigh: np.ndarray, *, categorical: bool,
              for lo in range(0, b, chunk)]
     idx = parts[0] if len(parts) == 1 else np.concatenate(parts)
     return uniq[idx].astype(np.float64)
+
+
+def _neighbor_aggregate_torch(neigh, categorical: bool, impl: str
+                              ) -> np.ndarray:
+    vals = (neigh if isinstance(neigh, torch.Tensor)
+            else torch.from_numpy(np.asarray(neigh)))
+    if vals.dim() != 2:
+        raise ValueError(f"neighbor_aggregate expects (b, k), got "
+                         f"{tuple(vals.shape)}")
+    if vals.shape[0] == 0:
+        return np.zeros(0, dtype=np.float64)
+    if categorical:
+        if vals.is_floating_point():
+            raise ValueError("the categorical mode takes integer values")
+        vals = vals.to(torch.int64).contiguous()
+        mode = _neighbor_mode_cuda if impl == "cuda" else _ref.neighbor_mode_ref
+        out = mode(vals)
+    else:
+        vals = vals.to(torch.float32).contiguous()
+        mean = _neighbor_mean_cuda if impl == "cuda" else _ref.neighbor_mean_ref
+        out = mean(vals)
+    return out.cpu().numpy().astype(np.float64)

@@ -3,18 +3,29 @@
 Each function computes what one hand-written CUDA kernel in ``csrc/``
 computes, with plain tensor ops that run on any device.  The CPU tests hold
 them against the reference package's oracles; ``chip_smoke.py`` holds each
-kernel against them on the card.  The masked distance repeats the kernel's
-arithmetic operation for operation, so on the card the two agree bit for
-bit.
+kernel against them on the card.  The masked distance and the neighbour
+mean repeat their kernels' arithmetic operation for operation, so on the
+card the two agree bit for bit; the hash join and the neighbour mode are
+exact by nature.
 """
 
 from __future__ import annotations
 
 import torch
 
+from typing import Tuple
+
 from repro_torch.kernels.hashing import MULTIPLIERS, OFFSETS
 
-__all__ = ["bloom_probe_ref", "masked_distance_ref"]
+__all__ = [
+    "bloom_probe_ref",
+    "hash_join_build_ref",
+    "hash_join_probe_ref",
+    "hash_join_ref",
+    "masked_distance_ref",
+    "neighbor_mean_ref",
+    "neighbor_mode_ref",
+]
 
 _U32 = 0xFFFFFFFF
 
@@ -81,3 +92,73 @@ def masked_distance_ref(q: torch.Tensor, qm: torch.Tensor, r: torch.Tensor,
     scaled = torch.where(n_co > 0, sq * scale,
                          torch.full_like(sq, float("inf")))
     return scaled.clamp_min(0.0)
+
+
+def hash_join_build_ref(build_keys: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Build half of the sort-join: ``(sorted_keys, order)`` with
+    ``sorted_keys = build_keys[order]`` and equal keys kept in row order
+    (a stable sort)."""
+    sorted_keys, order = torch.sort(build_keys, stable=True)
+    return sorted_keys, order
+
+
+def hash_join_probe_ref(sorted_keys: torch.Tensor, order: torch.Tensor,
+                        probe_keys: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Probe half of the sort-join: every ``(probe_idx, build_idx)`` pair
+    with equal keys, probe-major, build index ascending within a probe."""
+    lo = torch.searchsorted(sorted_keys, probe_keys, right=False)
+    hi = torch.searchsorted(sorted_keys, probe_keys, right=True)
+    counts = hi - lo
+    probe_idx = torch.repeat_interleave(
+        torch.arange(len(probe_keys), dtype=torch.int64,
+                     device=probe_keys.device), counts)
+    # position of each pair inside its probe's run of matches
+    starts = torch.cumsum(counts, 0) - counts
+    offs = (torch.arange(len(probe_idx), dtype=torch.int64,
+                         device=probe_keys.device)
+            - torch.repeat_interleave(starts, counts))
+    build_idx = order[torch.repeat_interleave(lo, counts) + offs]
+    return probe_idx, build_idx
+
+
+def hash_join_ref(build_keys: torch.Tensor, probe_keys: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact equi-join of two int64 key vectors (the semantics of the
+    hash-join kernels ``csrc/hash_join.cu``): every ``(probe_idx,
+    build_idx)`` pair with equal keys, as int64 tensors, ordered by probe
+    index and, within a probe, by ascending build index."""
+    return hash_join_probe_ref(*hash_join_build_ref(build_keys), probe_keys)
+
+
+def neighbor_mean_ref(vals: torch.Tensor) -> torch.Tensor:
+    """KNN float aggregation: ``(b, k)`` float32 → ``(b,)`` row means.
+
+    The sum runs over the columns in order, starting from column 0, and is
+    then divided by ``k`` — a division by a full tensor, because torch
+    computes ``t / k`` as ``t * (1 / k)``.  That is the kernel's order of
+    operations, so on the card the two agree bit for bit.  ``k == 0``
+    gives NaN, as a mean over no values does."""
+    b, k = vals.shape
+    if k == 0:
+        return torch.full((b,), float("nan"), dtype=torch.float32,
+                          device=vals.device)
+    s = vals[:, 0].clone()
+    for j in range(1, k):
+        s = s + vals[:, j]
+    return s / torch.full_like(s, float(k))
+
+
+def neighbor_mode_ref(vals: torch.Tensor) -> torch.Tensor:
+    """KNN categorical aggregation: ``(b, k)`` int64 raw values → ``(b,)``
+    the value that occurs most often in each row, ties to the smallest
+    value — the reference's dictionary compression followed by a
+    first-maximum argmax, without the compression."""
+    if vals.shape[1] == 0:
+        raise ValueError("neighbor_mode needs at least one column")
+    counts = (vals[:, :, None] == vals[:, None, :]).sum(dim=2)
+    top = counts.max(dim=1, keepdim=True).values
+    big = torch.iinfo(vals.dtype).max
+    return torch.where(counts == top, vals,
+                       torch.full_like(vals, big)).min(dim=1).values

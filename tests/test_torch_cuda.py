@@ -17,7 +17,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import bloom_probe as bp
+from repro_torch.kernels import hash_join as hj
 from repro_torch.kernels import knn_distance as kd
+from repro_torch.kernels import neighbor_agg as na
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.hashing import fold64
@@ -86,3 +88,117 @@ def test_wrappers_reject_bad_input(cuda_device):
         bp.bloom_probe(bits, torch.zeros(3, dtype=torch.int64,
                                          device=cuda_device),
                        num_hashes=4, log2m=14)
+
+
+# --------------------------------------------------------------------------- #
+# hash join
+# --------------------------------------------------------------------------- #
+_JOIN_CASES = {
+    "singleton": ([5], [5]),
+    "absent": ([1, 2, 3], [4, 5, 6, 7]),
+    "all-duplicate build": ([7] * 40, [7, 8, 7, 7]),
+    "all-duplicate both": ([3] * 25, [3] * 17),
+    "extreme keys": ([-(2**62), -1, 0, 1, 2**62, -(2**62), -(2**63),
+                      2**63 - 1],
+                     [0, -(2**62), 2**62, -5, -1, -(2**63), 2**63 - 1]),
+    "sentinels": ([-(2**62)] * 300 + [4, 9, 4], [-(2**61)] * 50 + [4, 9]),
+}
+
+
+def _join_case(name):
+    if name in _JOIN_CASES:
+        b, p = _JOIN_CASES[name]
+        return np.asarray(b, dtype=np.int64), np.asarray(p, dtype=np.int64)
+    rng = np.random.default_rng(11)
+    if name == "skewed":  # a key repeated 831 times, as on the wifi spine
+        b = rng.integers(0, 50_000, 200_000)
+        b[rng.choice(len(b), 831, replace=False)] = -1
+        p = np.concatenate([rng.integers(0, 60_000, 50_000), [-1, -1]])
+        return b, p
+    if name == "large":  # past the build size whose cursors fit on chip
+        b = rng.integers(0, 300_000, 1_200_000)
+        return b, rng.integers(0, 350_000, 20_000)
+    b = rng.integers(-(2**62), 2**62, 100_000)  # "wide": distinct keys
+    return b, np.concatenate([b[::7], rng.integers(-(2**62), 2**62, 1000)])
+
+
+@pytest.mark.parametrize("name", sorted(_JOIN_CASES)
+                         + ["skewed", "wide", "large"])
+def test_hash_join_kernels_equal_plain(cuda_device, name):
+    b, p = _join_case(name)
+    bt = torch.from_numpy(b).to(cuda_device)
+    pt = torch.from_numpy(p).to(cuda_device)
+    builds, probes = hj.build_launches, hj.probe_launches
+    got = hj.hash_join(bt, pt)
+    torch.cuda.synchronize()
+    assert (hj.build_launches, hj.probe_launches) == (builds + 1, probes + 1)
+    want = kref.hash_join_ref(bt, pt)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for g, w in zip(got, kops.sort_join(b, p)):
+        np.testing.assert_array_equal(g.cpu().numpy(), w)
+
+
+def test_hash_join_match_on_card(cuda_device):
+    b, p = _join_case("skewed")
+    for impl in ("ref", "cuda"):
+        got = kops.hash_join_match(b, p, impl=impl, device=cuda_device)
+        for g, w in zip(got, kops.sort_join(b, p)):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_hash_join_wrapper_rejects_bad_input(cuda_device):
+    keys = torch.zeros(4, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError):
+        hj.hash_join(keys.to(torch.int32), keys)
+    with pytest.raises(ValueError):
+        hj.hash_join(keys, keys.cpu())
+    with pytest.raises(ValueError):
+        hj.hash_join_probe(hj.hash_join_build(keys), keys.cpu())
+
+
+# --------------------------------------------------------------------------- #
+# neighbour aggregation
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("b,k", [(1, 1), (5, 4), (128, 5), (300, 9),
+                                 (1024, 5), (4097, 13)])
+def test_neighbor_mean_kernel_bitwise_equals_plain(cuda_device, b, k):
+    rng = np.random.default_rng(b + k)
+    vals = torch.from_numpy(
+        rng.normal(0.0, 100.0, size=(b, k)).astype(np.float32)).to(cuda_device)
+    before = na.mean_launches
+    got = na.neighbor_mean(vals)
+    torch.cuda.synchronize()
+    assert na.mean_launches == before + 1
+    assert torch.equal(got, kref.neighbor_mean_ref(vals))
+
+
+@pytest.mark.parametrize("b,k,classes", [(1, 1, 1), (64, 5, 3), (1024, 5, 7),
+                                         (300, 9, 1000), (4097, 4, 2)])
+def test_neighbor_mode_kernel_equals_plain(cuda_device, b, k, classes):
+    rng = np.random.default_rng(b * 100 + k * 10 + classes)
+    labels = rng.integers(-(2**40), 2**40, classes)
+    vals = torch.from_numpy(labels[rng.integers(0, classes, (b, k))]).to(
+        cuda_device)
+    before = na.mode_launches
+    got = na.neighbor_mode(vals)
+    torch.cuda.synchronize()
+    assert na.mode_launches == before + 1
+    assert torch.equal(got, kref.neighbor_mode_ref(vals))
+
+
+def test_neighbor_mode_ties_on_card(cuda_device):
+    vals = torch.tensor([[9, 2, 2, 9], [5, 5, 1, 1], [-3, 7, 7, -3]],
+                        device=cuda_device)
+    assert na.neighbor_mode(vals).cpu().tolist() == [2, 1, -3]
+
+
+def test_neighbor_wrappers_reject_bad_input(cuda_device):
+    with pytest.raises(ValueError):
+        na.neighbor_mean(torch.zeros((2, 3), dtype=torch.float64,
+                                     device=cuda_device))
+    with pytest.raises(ValueError):
+        na.neighbor_mode(torch.zeros((2, 3), dtype=torch.int32,
+                                     device=cuda_device))
+    with pytest.raises(ValueError):
+        na.neighbor_mean(torch.zeros((3, 2), device=cuda_device).t())

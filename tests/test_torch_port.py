@@ -220,6 +220,7 @@ _RESOLVERS = {
     "QUIPT_BLOOM_IMPL": lambda: kops.resolve_bloom_impl(),
     "QUIPT_DIST_IMPL": lambda: kops.resolve_dist_impl(),
     "QUIPT_KNN_IMPL": lambda: kops.resolve_knn_impl(),
+    "QUIPT_JOIN_IMPL": lambda: resolve_join_impl(),
 }
 
 
@@ -254,17 +255,52 @@ def test_port_reads_only_registered_quipt_knobs():
     assert read == set(ENV_REGISTRY)
 
 
-@pytest.mark.parametrize("impl", ["ref", "cuda"])
-def test_unported_join_impls_raise(impl):
-    keys = np.arange(4, dtype=np.int64)
-    with pytest.raises(ValueError, match="Queue 2 item 2"):
-        multi_match(keys, keys, impl=impl)
-    with pytest.raises(ValueError, match="Queue 2 item 2"):
-        resolve_join_impl(impl)
+@pytest.mark.parametrize("impl", ["numpy", "ref", "cuda"])
+def test_join_impl_resolvers_accept_every_member(monkeypatch, impl):
+    monkeypatch.delenv("QUIPT_JOIN_IMPL", raising=False)
     assert resolve_join_impl(None) == "numpy"
+    assert resolve_join_impl(impl) == impl
+    assert kops.resolve_join_impl(impl, torch.device("cpu")) == impl
+    monkeypatch.setenv("QUIPT_JOIN_IMPL", impl)
+    assert resolve_join_impl(None) == impl
+    assert kops.resolve_join_impl(None, torch.device("cuda")) == impl
+    # every member gives the oracle's pairs (on the CPU, ``cuda`` takes
+    # the kernels' plain version)
+    keys = np.array([3, 1, 3, 2], dtype=np.int64)
+    got = multi_match(keys, keys[::-1].copy(), impl=impl, device="cpu")
+    want = kops.sort_join(keys, keys[::-1].copy())
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
-def test_unported_exec_and_aggregation_impls_raise():
+def test_join_impl_resolvers_reject_unknown_and_default_by_device(
+        monkeypatch):
+    monkeypatch.delenv("QUIPT_JOIN_IMPL", raising=False)
+    for bad in ("pallas", "bogus"):
+        with pytest.raises(ValueError, match="unknown join impl"):
+            resolve_join_impl(bad)
+        with pytest.raises(ValueError, match="unknown join impl"):
+            kops.resolve_join_impl(bad, torch.device("cpu"))
+    assert kops.resolve_join_impl(None, torch.device("cpu")) == "ref"
+    assert kops.resolve_join_impl(None, torch.device("cuda")) == "cuda"
+
+
+@pytest.mark.parametrize("impl", ["numpy", "ref", "cuda"])
+def test_knn_impl_resolver_accepts_every_member(monkeypatch, impl):
+    monkeypatch.delenv("QUIPT_KNN_IMPL", raising=False)
+    assert kops.resolve_knn_impl(None) == "numpy"
+    assert kops.resolve_knn_impl(impl) == impl
+    monkeypatch.setenv("QUIPT_KNN_IMPL", impl)
+    assert kops.resolve_knn_impl(None) == impl
+    assert kops.resolve_knn_impl("numpy") == "numpy"  # explicit beats env
+    got = kops.neighbor_aggregate(np.array([[1.0, 2.0, 4.5]]),
+                                  categorical=False, impl=impl)
+    np.testing.assert_allclose(got, [2.5], rtol=1e-6)
+    with pytest.raises(ValueError, match="unknown knn impl"):
+        kops.resolve_knn_impl("pallas")
+
+
+def test_unported_exec_impl_raises():
     tables = to_port_tables(jax_cdc(np.random.default_rng(2), n_demo=30,
                                     n_labs=30, n_exams=30)[0])
     q = workload("cdc", tables, n_queries=1, seed=7)[0]
@@ -274,9 +310,6 @@ def test_unported_exec_and_aggregation_impls_raise():
                               exec_impl="compiled", device="cpu")
     with pytest.raises(ValueError):
         executor.resolve_exec_impl("bogus")
-    with pytest.raises(ValueError, match="Queue 2 item 4"):
-        kops.neighbor_aggregate(np.zeros((2, 3)), categorical=False,
-                                impl="ref")
 
 
 # --------------------------------------------------------------------------- #
