@@ -12,13 +12,20 @@ cycle, in two configurations of the main path:
 * slice 1 -- the bloom probe and the masked distance on the card, the join
   spine and the neighbour aggregation on the host (the defaults);
 * slice 2 -- also ``join_impl="cuda"`` (the hash-join kernels) and
-  ``agg_impl="cuda"`` (the neighbour mean/mode kernels).
+  ``agg_impl="cuda"`` (the neighbour mean/mode kernels);
+* slice 3 -- compiled tensor plans: ``exec_impl="compiled"`` with the
+  eager strategy, VF lists and the MIN/MAX pushdown off, the join spine and
+  the neighbour aggregation on the card as in slice 2, and the grouped
+  aggregates through the segment-reduce kernels
+  (``QUIPT_SEGMENT_IMPL=cuda``).
 
 Each configuration runs once through the kernels and once through the plain
 versions, whose answers and imputation counts must agree; slice 2's wifi
-answers must also equal slice 1's.  A last phase checks the paper's
+answers must also equal slice 1's.  The last phases check the paper's
 correctness invariant (every QUIP answer equals the offline answer) on the
-generators' default sizes.
+generators' default sizes, the compiled answers against the interpreter's
+and the offline answers, and one union, set minus and nested query per
+data set on slice 3's kernel and plain paths.
 
 Every phase passes or raises; any failure exits non-zero and prints no
 result.  The last lines are the card's name and power limit, one JSON line
@@ -33,6 +40,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -54,7 +62,8 @@ FP32_OPS_PER_S = 67e12  # CUDA cores, no tensor cores
 PORT_KERNELS = ("bloom_probe_kernel", "masked_distance_kernel",
                 "join_insert_kernel", "join_place_kernel",
                 "join_probe_kernel", "join_emit_kernel",
-                "neighbor_mean_kernel", "neighbor_mode_kernel")
+                "neighbor_mean_kernel", "neighbor_mode_kernel",
+                "segment_count_kernel", "segment_reduce_kernel")
 
 KNN_COST = 2e-3  # simulated seconds per KNN value, as benchmarks/common.py
 WIFI_FULL = dict(n_users=4000, n_wifi=1_000_000, n_occ=4000, n_rooms=60)
@@ -66,6 +75,11 @@ SLICE1 = dict(join_impl=None, agg_impl=None, impl=None, bloom_impl=None)
 PLAIN1 = dict(join_impl=None, agg_impl=None, impl="ref", bloom_impl="ref")
 SLICE2 = dict(join_impl="cuda", agg_impl="cuda", impl=None, bloom_impl=None)
 PLAIN2 = dict(join_impl="ref", agg_impl="ref", impl="ref", bloom_impl="ref")
+# slice 3 adds the executor and the segment member: compiled plans need the
+# eager strategy with VF lists and the MIN/MAX pushdown off (the bloom
+# probe is then off the path)
+SLICE3 = dict(SLICE2, exec_impl="compiled", segment_impl="cuda")
+PLAIN3 = dict(PLAIN2, exec_impl="compiled", segment_impl="ref")
 
 
 @contextlib.contextmanager
@@ -396,39 +410,199 @@ def time_neighbor(na, kref, mean_vals, mode_vals):
     return mean, mode
 
 
+# segment reduce: the main path's shape (wifi q2 at full scale groups
+# 328,358 rows into 3,166 segments), one segment of a million rows, a
+# million rows into 500,000 segments, empty segments and negative ids, NaN
+SEGMENT_CASES = {
+    "main-path shape": (328_358, 3166),
+    "one segment of 1M rows": (1_000_000, 1),
+    "1M rows into 500,000 segments": (1_000_000, 500_000),
+    "empty segments and negative ids": (5_000, 64),
+    "NaN": (20_000, 100),
+}
+SEGMENT_OPS = ("count", "sum", "min", "max")
+
+
+def segment_case(what: str, seed: int):
+    """Ids with every seventh segment empty and 3% negative (a third of
+    the segments empty and 30% negative for the empty-and-negative case),
+    float64 values over 16 decades (1% NaN for the NaN case) and int64
+    values near the int64 limits, so the sums wrap."""
+    n, num_segments = SEGMENT_CASES[what]
+    rng = np.random.default_rng(seed)
+    hollow = what == "empty segments and negative ids"
+    live = np.arange(num_segments)
+    if num_segments > 1:
+        live = live[live % 3 != 1] if hollow else live[live % 7 != 3]
+    seg = live[rng.integers(0, len(live), n)].astype(np.int64)
+    seg[rng.random(n) < (0.3 if hollow else 0.03)] = -1
+    fvals = rng.normal(size=n) * 10.0 ** rng.integers(-8, 8, n)
+    if what == "NaN":
+        fvals[rng.random(n) < 0.01] = np.nan
+    ivals = rng.integers(-(2**62), 2**62, n, dtype=np.int64)
+    return seg, num_segments, {"float64": fvals, "int64": ivals}
+
+
+def segment_err(got: np.ndarray, want: np.ndarray, what: str) -> float:
+    """Largest |kernel - other| over the non-NaN entries; raises unless the
+    two are bitwise equal, NaN at the same places (numpy's NaN has one
+    payload, the kernel's and the plain version's another)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"segment_reduce {what}: {got.dtype} "
+                             f"{got.shape} against {want.dtype} {want.shape}")
+    nan = np.isnan(got) if got.dtype == np.float64 else np.zeros(len(got),
+                                                                 bool)
+    if got.dtype == np.float64 and not np.array_equal(nan, np.isnan(want)):
+        raise AssertionError(f"segment_reduce {what}: NaN at other places")
+    g, w = got[~nan], want[~nan]
+    diff = np.where(g == w, 0.0, np.abs(g.astype(np.float64)
+                                        - w.astype(np.float64)))
+    if g.tobytes() != w.tobytes():
+        raise AssertionError(f"segment_reduce {what}: {int((g != w).sum())} "
+                             f"of {len(got)} segments not bitwise equal "
+                             f"(largest difference {diff.max()})")
+    return float(diff.max()) if len(diff) else 0.0
+
+
+def check_segment_call(so, kref, kops, dev, seg, num_segments, vals, op,
+                       what: str) -> float:
+    """The kernel against its plain version and the numpy member, on one
+    op; returns the largest |difference|."""
+    st = torch.from_numpy(seg).to(dev)
+    vt = None if op == "count" else torch.from_numpy(vals).to(dev)
+    got = so.segment_reduce(vt, st, num_segments, op).cpu().numpy()
+    want = kref.segment_reduce_ref(vt, st, num_segments, op).cpu().numpy()
+    oracle = kops.segment_reduce(None if op == "count" else vals, seg,
+                                 num_segments, op, impl="numpy")
+    return max(segment_err(got, want, f"{what} {op} (plain)"),
+               segment_err(got, oracle, f"{what} {op} (numpy member)"))
+
+
+def check_segment(dev, so, kref, kops) -> float:
+    err = 0.0
+    for i, what in enumerate(SEGMENT_CASES):
+        seg, num_segments, vals = segment_case(what, seed=20 + i)
+        err = max(err, check_segment_call(so, kref, kops, dev, seg,
+                                          num_segments, None, "count", what))
+        for dtype, v in vals.items():
+            for op in SEGMENT_OPS[1:]:
+                err = max(err, check_segment_call(
+                    so, kref, kops, dev, seg, num_segments, v, op,
+                    f"{what} {dtype}"))
+        print(f"   segment_reduce bitwise == plain == numpy member on {what} "
+              f"({len(seg)} rows, {num_segments} segments): count, and "
+              f"sum/min/max over int64 and float64", flush=True)
+    return err
+
+
+def time_segment(dev, so, kref, kops, build, vals: torch.Tensor,
+                 seg: torch.Tensor, num_segments: int):
+    """The main path's largest grouped reduction: every op checked over its
+    values as float64 and as int64, then count and the float64 sum timed
+    against their plain versions and a library call, and the sum's time
+    split into its steps."""
+    vals = vals.to(torch.float64)
+    seg_np, vals_np = seg.cpu().numpy(), vals.cpu().numpy()
+    err = check_segment_call(so, kref, kops, dev, seg_np, num_segments,
+                             None, "count", "the main path's call")
+    for v in (vals_np, vals_np.astype(np.int64)):
+        for op in SEGMENT_OPS[1:]:
+            err = max(err, check_segment_call(
+                so, kref, kops, dev, seg_np, num_segments, v, op,
+                f"the main path's call ({v.dtype})"))
+    n = len(seg_np)
+    count = {
+        "ms": cuda_ms(lambda: so.segment_reduce(None, seg, num_segments,
+                                                "count"), reps=100),
+        "plain_ms": cuda_ms(lambda: kref.segment_reduce_ref(
+            None, seg, num_segments, "count"), reps=100),
+        "library_ms": cuda_ms(lambda: torch.bincount(
+            seg, minlength=num_segments), reps=100),
+    }
+    count["bound_ms"], count["bound_by"] = bound_ms(
+        nbytes=8 * n + 8 * num_segments, ops=n)
+    total = {
+        "ms": cuda_ms(lambda: so.segment_reduce(vals, seg, num_segments,
+                                                "sum"), reps=100),
+        "plain_ms": cuda_ms(lambda: kref.segment_reduce_ref(
+            vals, seg, num_segments, "sum"), reps=10),
+        # timed only: index_add_ sums in no fixed order
+        "library_ms": cuda_ms(lambda: torch.zeros(
+            num_segments, dtype=vals.dtype, device=dev).index_add_(
+                0, seg, vals), reps=100),
+        "err": err,
+    }
+    total["bound_ms"], total["bound_by"] = bound_ms(
+        nbytes=16 * n + 8 * num_segments, ops=n)
+    shape = f"{n} rows into {num_segments} segments"
+    count["shape"] = total["shape"] = shape
+    # the sum's steps: the place step alone (the hash join's place kernel,
+    # one owner block per 8,064 slots), and an int64 max, whose reduce
+    # step is one compare per row
+    lib = build.library()
+    row_slot = seg.to(torch.int32)
+    sizes = torch.bincount(seg, minlength=num_segments)
+    starts = torch.cumsum(sizes, 0) - sizes
+    grouped = torch.empty(n, dtype=torch.int32, device=dev)
+
+    def place():
+        cursor = starts.clone()
+        build.check(lib.quipt_join_place(
+            row_slot.data_ptr(), n, cursor.data_ptr(), grouped.data_ptr(),
+            num_segments, torch.cuda.current_stream().cuda_stream), "place")
+
+    ivals = vals.to(torch.int64)
+    place_ms = cuda_ms(place, reps=50)
+    max_ms = cuda_ms(lambda: so.segment_reduce(ivals, seg, num_segments,
+                                               "max"), reps=50)
+    print(f"   segment_reduce steps at {shape} (largest segment "
+          f"{int(sizes.max())} rows): place {place_ms:.4f} ms, int64 max "
+          f"{max_ms:.4f} ms", flush=True)
+    for what in ("one segment of 1M rows", "1M rows into 500,000 segments"):
+        s_np, num, v = segment_case(what, seed=7)
+        st = torch.from_numpy(s_np).to(dev)
+        vt = torch.from_numpy(v["float64"]).to(dev)
+        ms = cuda_ms(lambda: so.segment_reduce(vt, st, num, "sum"), reps=5)
+        print(f"   segment_reduce float64 sum at {what}: {ms:.4f} ms",
+              flush=True)
+    return count, total
+
+
 # --------------------------------------------------------------------------- #
 # end to end
 # --------------------------------------------------------------------------- #
 class Launches:
-    """The six kernels' launch counters, set to 0 and read together."""
+    """The seven kernels' launch counters, set to 0 and read together."""
 
-    def __init__(self, bp, kd, hj, na):
-        self.mods = (bp, kd, hj, na)
+    def __init__(self, bp, kd, hj, na, so):
+        self.mods = (bp, kd, hj, na, so)
 
     def reset(self) -> None:
-        bp, kd, hj, na = self.mods
-        bp.launches = kd.launches = 0
+        bp, kd, hj, na, so = self.mods
+        bp.launches = kd.launches = so.launches = 0
         hj.build_launches = hj.probe_launches = 0
         na.mean_launches = na.mode_launches = 0
 
     def read(self) -> dict:
-        bp, kd, hj, na = self.mods
+        bp, kd, hj, na, so = self.mods
         return {"bloom_probe": bp.launches, "masked_distance": kd.launches,
                 "hash_join_build": hj.build_launches,
                 "hash_join_probe": hj.probe_launches,
                 "neighbor_mean": na.mean_launches,
-                "neighbor_mode": na.mode_launches}
+                "neighbor_mode": na.mode_launches,
+                "segment_reduce": so.launches}
 
 
 @contextlib.contextmanager
 def recording(kops):
     """Keep, for the kernel-time phase, the main path's calls into the
     kernels: the bloom probes' sizes, every join's sizes and the largest
-    join's keys, and the largest mean and mode inputs."""
+    join's keys, the largest mean and mode inputs, and every segment
+    reduction's size with the largest one's values and ids."""
     rec = {"bloom": Counter(), "join": [], "join_keys": None, "mean": None,
-           "mode": None}
+           "mode": None, "segment": [], "segment_args": None}
     names = ("_bloom_probe_cuda", "_hash_join_cuda", "_neighbor_mean_cuda",
-             "_neighbor_mode_cuda")
+             "_neighbor_mode_cuda", "_segment_reduce_cuda")
     orig = {n: getattr(kops, n) for n in names}
 
     def bloom(bits, folded, **kw):
@@ -449,9 +623,18 @@ def recording(kops):
             return orig[name](vals)
         return call
 
+    def segment(vals, seg, num_segments, op):
+        rec["segment"].append((seg.shape[0], num_segments, op))
+        big = rec["segment_args"]
+        if vals is not None and (big is None
+                                 or seg.shape[0] > big[1].shape[0]):
+            rec["segment_args"] = (vals.clone(), seg.clone(), num_segments)
+        return orig["_segment_reduce_cuda"](vals, seg, num_segments, op)
+
     patched = {"_bloom_probe_cuda": bloom, "_hash_join_cuda": join,
                "_neighbor_mean_cuda": agg("mean", "_neighbor_mean_cuda"),
-               "_neighbor_mode_cuda": agg("mode", "_neighbor_mode_cuda")}
+               "_neighbor_mode_cuda": agg("mode", "_neighbor_mode_cuda"),
+               "_segment_reduce_cuda": segment}
     for n, fn in patched.items():
         setattr(kops, n, fn)
     try:
@@ -476,39 +659,85 @@ def frozen_clock(modules):
             m.time = t
 
 
+@contextlib.contextmanager
+def knobs(**values):
+    """Set ``QUIPT_*`` environment knobs for a block (None: unset)."""
+    saved = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def quip_kwargs(cfg) -> dict:
+    """``execute_quip``'s knobs for one configuration (the segment member
+    is read from ``QUIPT_SEGMENT_IMPL``, as in the reference)."""
+    if cfg.get("exec_impl") == "compiled":
+        return dict(strategy="eager", use_vf=False, minmax_opt=False,
+                    exec_impl="compiled", join_impl=cfg["join_impl"])
+    return dict(strategy="adaptive", use_vf=True, bloom_impl=cfg["bloom_impl"],
+                join_impl=cfg["join_impl"])
+
+
+def knn_engine(imputers, tables, dev, cfg, cost=KNN_COST):
+    return imputers.ImputationEngine(
+        {t: r.copy() for t, r in tables.items()},
+        default=lambda: imputers.KnnImputer(
+            k=5, cost_per_value=cost, impl=cfg["impl"],
+            agg_impl=cfg["agg_impl"], device=dev))
+
+
+def check_compiled(counters, what: str) -> None:
+    got = (counters.exec_impl, counters.compiled_hits,
+           counters.compile_fallbacks)
+    if got != ("compiled", 1, 0):
+        raise AssertionError(f"{what}: (exec_impl, compiled_hits, "
+                             f"compile_fallbacks) = {got}, want "
+                             f"('compiled', 1, 0)")
+
+
 def run_workload(tables, queries, dev, cfg, mods, label: str, quiet=False):
     """Answer every query with a fresh engine in configuration ``cfg``;
     returns ``[(answer rows, imputations, seconds)]``."""
     executor, imputers = mods[:2]
     out = []
-    for i, q in enumerate(queries):
-        engine = imputers.ImputationEngine(
-            {t: r.copy() for t, r in tables.items()},
-            default=lambda: imputers.KnnImputer(
-                k=5, cost_per_value=KNN_COST, impl=cfg["impl"],
-                agg_impl=cfg["agg_impl"], device=dev))
-        t0 = time.perf_counter()
-        res = executor.execute_quip(q, tables, engine, strategy="adaptive",
-                                    use_vf=True, bloom_impl=cfg["bloom_impl"],
-                                    join_impl=cfg["join_impl"], device=dev)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        rows = res.answer_tuples()
-        c = res.counters
-        out.append((rows, c.imputations, secs))
-        if not quiet:
-            print(f"   {label} q{i}: imputations={c.imputations} "
-                  f"filtered_by_bloom={c.filtered_by_bloom} rows={len(rows)} "
-                  f"join_impl={c.join_impl} digest={digest(rows)} "
-                  f"seconds={secs:.3f}", flush=True)
+    with knobs(QUIPT_SEGMENT_IMPL=cfg.get("segment_impl")):
+        for i, q in enumerate(queries):
+            engine = knn_engine(imputers, tables, dev, cfg)
+            t0 = time.perf_counter()
+            res = executor.execute_quip(q, tables, engine, device=dev,
+                                        **quip_kwargs(cfg))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            rows = res.answer_tuples()
+            c = res.counters
+            if cfg.get("exec_impl") == "compiled":
+                check_compiled(c, f"{label} q{i}")
+            out.append((rows, c.imputations, secs))
+            if not quiet:
+                print(f"   {label} q{i}: imputations={c.imputations} "
+                      f"filtered_by_bloom={c.filtered_by_bloom} "
+                      f"rows={len(rows)} join_impl={c.join_impl} "
+                      f"exec_impl={c.exec_impl} digest={digest(rows)} "
+                      f"seconds={secs:.3f}", flush=True)
     return out
 
 
 def end_to_end(name, tables, queries, dev, mods, launches, kernel_cfg,
-               plain_cfg, expect, label):
-    """The kernel path of one configuration, with the six counters set to
-    0 just before it and read just after, then its plain twin, which must
-    launch nothing and give the same answers and imputation counts."""
+               plain_cfg, expect, label, off_path=()):
+    """The kernel path of one configuration, with the seven counters set to
+    0 just before it and read just after (every kernel of ``expect``
+    launched, none of ``off_path``), then its plain twin, which must launch
+    nothing and give the same answers and imputation counts."""
     launches.reset()
     kernel = run_workload(tables, queries, dev, kernel_cfg, mods,
                           f"{name} {label} kernels")
@@ -519,6 +748,10 @@ def end_to_end(name, tables, queries, dev, mods, launches, kernel_cfg,
         if counts[k] <= 0:
             raise AssertionError(f"{name} {label}: kernel {k} was never "
                                  f"launched")
+    for k in off_path:
+        if counts[k] != 0:
+            raise AssertionError(f"{name} {label}: kernel {k} is off this "
+                                 f"path but launched {counts[k]} times")
     plain = run_workload(tables, queries, dev, plain_cfg, mods,
                          f"{name} {label} plain")
     if launches.read() != counts:
@@ -562,17 +795,13 @@ def profile_query(tables, q, dev, mods, cfg, label: str) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     executor, imputers = mods[:2]
-    engine = imputers.ImputationEngine(
-        {t: r.copy() for t, r in tables.items()},
-        default=lambda: imputers.KnnImputer(
-            k=5, cost_per_value=KNN_COST, agg_impl=cfg["agg_impl"],
-            device=dev))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    engine = knn_engine(imputers, tables, dev, cfg)
+    with knobs(QUIPT_SEGMENT_IMPL=cfg.get("segment_impl")), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        executor.execute_quip(q, tables, engine, strategy="adaptive",
-                              use_vf=True, join_impl=cfg["join_impl"],
-                              device=dev)
+        executor.execute_quip(q, tables, engine, device=dev,
+                              **quip_kwargs(cfg))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -624,6 +853,100 @@ def check_against_offline(dataset, tables, queries, dev, mods, cfg, label):
           f"answers", flush=True)
 
 
+def check_compiled_against_interp(dataset, tables, queries, dev, mods, cfg):
+    """Each compiled answer equals the interpreter's under the same knobs
+    (with the same imputation count) and the offline answer."""
+    executor, imputers = mods[:2]
+    kw = quip_kwargs(cfg)
+    with knobs(QUIPT_SEGMENT_IMPL=cfg["segment_impl"]):
+        for i, q in enumerate(queries):
+            comp = executor.execute_quip(
+                q, tables, knn_engine(imputers, tables, dev, cfg),
+                device=dev, **kw)
+            check_compiled(comp.counters, f"{dataset} q{i}")
+            interp = executor.execute_quip(
+                q, tables, knn_engine(imputers, tables, dev, cfg),
+                device=dev, **dict(kw, exec_impl="interp"))
+            offline = executor.execute_offline(
+                q, tables, knn_engine(imputers, tables, dev, cfg), device=dev)
+            if not (comp.answer_tuples() == interp.answer_tuples()
+                    == offline.answer_tuples()):
+                raise AssertionError(f"{dataset} q{i}: the compiled, "
+                                     f"interpreted and offline answers differ")
+            if comp.counters.imputations != interp.counters.imputations:
+                raise AssertionError(
+                    f"{dataset} q{i}: compiled {comp.counters.imputations} "
+                    f"against interpreted {interp.counters.imputations} "
+                    f"imputations")
+    print(f"   {dataset} slice 3: {len(queries)} compiled answers == "
+          f"interpreted answers (same imputations) == offline answers",
+          flush=True)
+
+
+def compound_queries(dataset, tables):
+    """One nested query per data set: rows of one table whose key is IN the
+    keys of another table's rows at or below the median of an attribute."""
+    from repro_torch.core.plan import Query
+    from repro_torch.core.predicates import SelectionPredicate
+
+    if dataset == "wifi":
+        attr, key, in_attr = "users.group", "users.mac_addr", "wifi.mac_addr"
+        outer = Query(tables=("wifi",), selections=(), joins=(),
+                      projection=("wifi.lid", "wifi.duration"))
+    else:
+        attr, key, in_attr = "labs.creatine", "labs.id", "demo.id"
+        outer = Query(tables=("demo",), selections=(), joins=(),
+                      projection=("demo.income",))
+    rel = tables[attr.split(".")[0]]
+    cut = np.median(rel.values(attr)[rel.is_present(attr)])
+    cut = cut.item() if rel.values(attr).dtype.kind == "f" else int(cut)
+    sub = Query(tables=(attr.split(".")[0],),
+                selections=(SelectionPredicate(attr, "<=", cut),),
+                joins=(), projection=(key,))
+    return outer, in_attr, sub
+
+
+def check_compound(dataset, tables, queries, dev, mods, ext):
+    """A union and a set minus of the first two queries and one nested
+    query, every branch compiled, on slice 3's kernel and plain paths:
+    equal answers."""
+    imputers = mods[1]
+    outer, in_attr, sub = compound_queries(dataset, tables)
+    answers = {}
+    for cfg, label in ((SLICE3, "kernels"), (PLAIN3, "plain")):
+        def factory():
+            return knn_engine(imputers, tables, dev, cfg)
+
+        with knobs(QUIPT_EXEC_IMPL="compiled",
+                   QUIPT_JOIN_IMPL=cfg["join_impl"],
+                   QUIPT_SEGMENT_IMPL=cfg["segment_impl"]):
+            runs = {
+                "union": ext.execute_union(queries[0], queries[1], tables,
+                                           factory, strategy="imputedb",
+                                           device=dev),
+                "minus": ext.execute_minus(queries[0], queries[1], tables,
+                                           factory, strategy="imputedb",
+                                           device=dev),
+                "nested": ext.execute_nested(outer, in_attr, sub, tables,
+                                             factory, strategy="imputedb",
+                                             device=dev),
+            }
+        for name, (_, stats) in runs.items():
+            if (stats["compiled_hits"], stats["compile_fallbacks"]) != (2, 0):
+                raise AssertionError(f"{dataset} {name} {label}: branches "
+                                     f"not compiled ({stats['compiled_hits']} "
+                                     f"hits, {stats['compile_fallbacks']} "
+                                     f"fallbacks)")
+        answers[label] = {name: rows for name, (rows, _) in runs.items()}
+        print(f"   {dataset} compound {label}: "
+              + ", ".join(f"{name} {len(rows)} rows"
+                          for name, rows in answers[label].items()),
+              flush=True)
+    if answers["kernels"] != answers["plain"]:
+        raise AssertionError(f"{dataset}: compound answers differ between "
+                             f"the kernel and plain paths")
+
+
 def kernel_entry(name, source, replaces, launches, t, err, library_ms):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -640,6 +963,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     try:
         from repro_torch.core import executor
+        from repro_torch.core import extensions as ext
         from repro_torch import imputers
         from repro_torch.data.queries import workload
         from repro_torch.data.synthetic import cdc_dataset, wifi_dataset
@@ -652,13 +976,14 @@ def main() -> int:
         from repro_torch.kernels import neighbor_agg as na
         from repro_torch.kernels import ops as kops
         from repro_torch.kernels import ref as kref
+        from repro_torch.kernels import segment_ops as so
         from repro_torch.kernels.hashing import fold64
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script ({exc})",
               file=sys.stderr)
         return 3
     mods = (executor, imputers, (executor, imputers_base))
-    launches = Launches(bp, kd, hj, na)
+    launches = Launches(bp, kd, hj, na, so)
     dev = torch.device("cuda")
     card = card_line()
     t_start = time.perf_counter()
@@ -701,6 +1026,11 @@ def main() -> int:
         join_check_err = check_join(dev, hj, kref, kops)
     with phase("neighbor_mean / neighbor_mode against their plain versions"):
         mean_check_err, mode_check_err = check_neighbor(dev, na, kref)
+    with phase("segment_reduce against its plain version and the numpy "
+               "member"):
+        print(f"   numpy {np.__version__} sums floats in blocks of "
+              f"{kref.numpy_sum_block()} values (0: whole)", flush=True)
+        seg_check_err = check_segment(dev, so, kref, kops)
 
     with recording(kops) as rec:
         with phase("end to end: wifi at full scale, slice 1"):
@@ -728,21 +1058,42 @@ def main() -> int:
                 "cdc", cdc, cdc_q, dev, mods, launches, SLICE2, PLAIN2,
                 ("masked_distance", "hash_join_build", "hash_join_probe",
                  "neighbor_mean"), "slice 2")
-    main_launches = {k: s2_wifi[k] + s2_cdc[k] for k in s2_wifi}
+        with phase("end to end: wifi at full scale, slice 3 (compiled "
+                   "plans, segment reduce on the card)"):
+            s3_wifi, _ = end_to_end(
+                "wifi", wifi, wifi_q, dev, mods, launches, SLICE3, PLAIN3,
+                ("masked_distance", "hash_join_build", "hash_join_probe",
+                 "neighbor_mode", "segment_reduce"), "slice 3",
+                off_path=("bloom_probe",))
+        with phase("end to end: cdc, one NHANES cycle, slice 3"):
+            s3_cdc, _ = end_to_end(
+                "cdc", cdc, cdc_q, dev, mods, launches, SLICE3, PLAIN3,
+                ("masked_distance", "hash_join_build", "hash_join_probe",
+                 "neighbor_mean", "segment_reduce"), "slice 3",
+                off_path=("bloom_probe",))
+    # every path was read with its counters set to 0 just before it
+    paths = (s1_wifi, s1_cdc, s2_wifi, s2_cdc, s3_wifi, s3_cdc)
+    main_launches = {k: sum(p[k] for p in paths) for k in s2_wifi}
     for k, v in main_launches.items():
         if v <= 0:
             raise AssertionError(f"kernel {k} was never launched on the "
-                                 f"slice 2 main path")
+                                 f"main paths")
     with phase("profile: wifi q1 on the kernel paths"):
         profile_query(wifi, wifi_q[1], dev, mods, SLICE1, "wifi q1 slice 1")
         profile_query(wifi, wifi_q[1], dev, mods, SLICE2, "wifi q1 slice 2")
-    with phase("correctness: QUIP == offline at the generators' defaults"):
+        profile_query(wifi, wifi_q[1], dev, mods, SLICE3,
+                      "wifi q1 slice 3 (compiled)")
+    with phase("correctness at the generators' defaults: QUIP == offline; "
+               "compiled == interpreted == offline; compound queries"):
         for ds, gen in (("wifi", wifi_dataset), ("cdc", cdc_dataset)):
             small, _ = gen()
             small_q = workload(ds, small, kind="random", n_queries=6, seed=7)
             for cfg, label in ((SLICE1, "slice 1"), (SLICE2, "slice 2")):
                 check_against_offline(ds, small, small_q, dev, mods, cfg,
                                       label)
+            check_compiled_against_interp(ds, small, small_q, dev, mods,
+                                          SLICE3)
+            check_compound(ds, small, small_q, dev, mods, ext)
 
     with phase("kernel times at the main path's shapes"):
         n, num_hashes, log2m = max(rec["bloom"])
@@ -756,10 +1107,17 @@ def main() -> int:
         dist_t = time_distance(kd, kref, *main_shapes["wifi"])
         build_t, probe_t = time_join(dev, hj, kref, kops, *rec["join_keys"])
         mean_t, mode_t = time_neighbor(na, kref, rec["mean"], rec["mode"])
+        calls = rec["segment"]
+        print(f"   main-path segment reductions: {len(calls)} calls "
+              f"{sorted(set(calls), reverse=True)[:8]}", flush=True)
+        seg_count_t, seg_sum_t = time_segment(dev, so, kref, kops, build,
+                                              *rec["segment_args"])
         for name, t in (("bloom_probe", bloom_t), ("masked_distance", dist_t),
                         ("hash_join_build", build_t),
                         ("hash_join_probe", probe_t),
-                        ("neighbor_mean", mean_t), ("neighbor_mode", mode_t)):
+                        ("neighbor_mean", mean_t), ("neighbor_mode", mode_t),
+                        ("segment_reduce count", seg_count_t),
+                        ("segment_reduce float64 sum", seg_sum_t)):
             lib = t.get("library_ms")
             print(f"   {name} at {t['shape']}: median kernel {t['ms']:.4f} "
                   f"ms, plain {t['plain_ms']:.4f} ms, bound "
@@ -768,6 +1126,7 @@ def main() -> int:
                   flush=True)
     print(f"   slice 1 launches: wifi {s1_wifi}, cdc {s1_cdc}")
     print(f"   slice 2 launches: wifi {s2_wifi}, cdc {s2_cdc}")
+    print(f"   slice 3 launches: wifi {s3_wifi}, cdc {s3_cdc}")
     print(f"total {time.perf_counter() - t_start:.1f}s", flush=True)
 
     csrc = "src/repro_torch/csrc/"
@@ -798,6 +1157,11 @@ def main() -> int:
                      main_launches["neighbor_mode"], mode_t,
                      max(mode_check_err, mode_t["err"]),
                      mode_t["library_ms"]),
+        kernel_entry("segment_reduce", csrc + "segment_reduce.cu",
+                     "src/repro/kernels/segment_ops.py:80",
+                     main_launches["segment_reduce"], seg_sum_t,
+                     max(seg_check_err, seg_sum_t["err"]),
+                     seg_sum_t["library_ms"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -86,6 +86,15 @@ ENV_REGISTRY: Dict[str, EnvKnob] = _registry(
     EnvKnob("QUIPT_DIST_IMPL", "choice", "auto (cuda on a CUDA tensor, "
             "ref on a CPU tensor)", "masked KNN partial-distance dispatch",
             choices=("numpy", "ref", "cuda"), owner="kernels/ops.py"),
+    EnvKnob("QUIPT_SEGMENT_IMPL", "choice", "numpy",
+            "segment-reduction dispatch for the compiled executor's grouped "
+            "aggregates: numpy host member, plain torch, or the CUDA kernels",
+            choices=("numpy", "ref", "cuda"), owner="kernels/ops.py"),
+    EnvKnob("QUIPT_EXEC_IMPL", "choice", "interp",
+            "executor dispatch: the morsel interpreter, or compiled tensor "
+            "plans where the strategy and knobs allow (else the interpreter, "
+            "counted in compile_fallbacks)",
+            choices=("interp", "compiled"), owner="core/compiled.py"),
     EnvKnob("QUIPT_SANITIZE", "choice", "off",
             "runtime sanitizers: 'locks' swaps every lock site for "
             "instrumented wrappers feeding the lock-order graph",

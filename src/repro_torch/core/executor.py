@@ -21,8 +21,11 @@ answer multiset equals the offline answer.
 The engine is host numpy, as in the reference package; ``device`` names
 where the bloom filters probe and, with ``join_impl`` ``ref`` or ``cuda``,
 where the join spine matches keys (it is validated like every entry
-point's: the default ``"cuda"`` raises where there is no card).  Compiled tensor
-plans are not ported: ``exec_impl="compiled"`` raises.
+point's: the default ``"cuda"`` raises where there is no card).  With
+``exec_impl="compiled"`` (or ``QUIPT_EXEC_IMPL=compiled``) an eligible plan
+runs as a compiled tensor plan (``core/compiled.py``), whose grouped
+aggregates reduce on ``device`` under ``QUIPT_SEGMENT_IMPL=ref|cuda``; the
+join and segment members default to numpy, as in the reference.
 """
 
 from __future__ import annotations
@@ -73,7 +76,6 @@ __all__ = [
     "relation_from_agg_aux",
     "execute_quip",
     "execute_offline",
-    "resolve_exec_impl",
     "evaluate_clean",
     "evaluate_clean_body",
     "make_plan",
@@ -1267,9 +1269,30 @@ def execute_quip(
     exec_impl: Optional[str] = None,
     device="cuda",
 ) -> ExecutionResult:
-    resolve_exec_impl(exec_impl)
     if plan is None:
         plan = make_plan(query, tables, planner=planner)
+    # compiled dispatch (QUIPT_EXEC_IMPL mirrors QUIPT_JOIN_IMPL): lower the
+    # plan to a whole-relation tensor program when provably answer-identical,
+    # else count the fallback and run the interpreter below
+    from repro_torch.core.compiled import (
+        CompileFallback,
+        compile_plan,
+        resolve_exec_impl,
+    )
+
+    if resolve_exec_impl(exec_impl) == "compiled":
+        try:
+            compiled = compile_plan(
+                query, plan, tables, strategy,
+                use_vf=use_vf, minmax_opt=minmax_opt, join_impl=join_impl,
+                device=device,
+            )
+        except CompileFallback:
+            engine.counters.compile_fallbacks += 1
+        else:
+            return compiled.run(
+                {t: tables[t].copy() for t in query.tables}, engine
+            )
     ex = QuipExecutor(
         query,
         {t: tables[t].copy() for t in query.tables},
@@ -1284,21 +1307,6 @@ def execute_quip(
         device=device,
     )
     return ex.run()
-
-
-def resolve_exec_impl(exec_impl: Optional[str] = None) -> str:
-    """Executor dispatch: only the morsel interpreter (``"interp"``, the
-    default) is ported; compiled tensor plans (ROADMAP Queue 1 item 8)
-    raise."""
-    impl = exec_impl or "interp"
-    if impl == "compiled":
-        raise NotImplementedError(
-            "exec_impl='compiled' is not ported: compiled plans are "
-            "ROADMAP Queue 1 item 8"
-        )
-    if impl != "interp":
-        raise ValueError(f"unknown exec impl {impl!r}")
-    return impl
 
 
 def execute_offline(

@@ -21,6 +21,8 @@ JOIN_GRAPHS: Dict[str, List[Tuple[str, str]]] = {
     "wifi": [("users.mac_addr", "wifi.mac_addr"),
              ("wifi.lid", "occupancy.lid")],
     "cdc": [("demo.id", "labs.id"), ("labs.id", "exams.id")],
+    "smartcampus": [("user.mac", "swifi.mac"),
+                    ("swifi.room", "location.room")],
 }
 
 _AGG_OPS = ("count", "sum", "avg", "max", "min")

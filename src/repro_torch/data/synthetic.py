@@ -4,6 +4,7 @@
   missing mac_addr, lid, occupancy, type (Table 6 rates).
 * ``cdc_dataset``       — CDC-NHANES-like: demo / exams / labs, 10 numeric
   attrs each, per-attr missing rates from Table 5.
+* ``smartcampus_dataset`` — SmartBench-like: semantic + sensor tables.
 
 The same seed gives the same arrays as the reference package's generators.
 
@@ -21,7 +22,7 @@ import numpy as np
 from repro_torch.core.relation import MaskedRelation
 from repro_torch.core.schema import ColumnSpec, Schema
 
-__all__ = ["wifi_dataset", "cdc_dataset"]
+__all__ = ["wifi_dataset", "cdc_dataset", "smartcampus_dataset"]
 
 
 def _relation(name: str, cols: Dict[str, np.ndarray],
@@ -155,4 +156,55 @@ def cdc_dataset(rng=None, n_demo: int = 2000, n_labs: int = 1900,
             truth_cols[q] = vals
         tables[t] = _relation(t, cols, missing, kinds)
         clean[t] = _relation(t, truth_cols, {}, kinds)
+    return tables, clean
+
+
+def smartcampus_dataset(rng=None, scale: int = 1):
+    """SmartBench-like: location/user semantic tables + wifi/bluetooth/
+    temperature/camera sensor tables (scaled-down Smart Campus)."""
+    rng = rng or np.random.default_rng(2)
+    n_rooms, n_users = 80 * scale, 300 * scale
+    n_sensor = 6000 * scale
+    tables, clean = {}, {}
+
+    rooms = np.arange(1, n_rooms + 1, dtype=np.int64)
+    floor = (rooms % 6).astype(np.int64)
+    bld = (rooms % 4).astype(np.int64)
+    bld_m = rng.random(n_rooms) < 0.3
+    cols = {"location.room": rooms, "location.floor": floor,
+            "location.building": np.where(bld_m, 0, bld)}
+    tables["location"] = _relation(
+        "location", cols, {"location.building": bld_m}, {}
+    )
+    clean["location"] = _relation(
+        "location", {**cols, "location.building": bld}, {}, {}
+    )
+
+    macs = np.arange(1, n_users + 1, dtype=np.int64)
+    mac_m = rng.random(n_users) < 0.2
+    cols = {"user.uid": np.arange(n_users, dtype=np.int64),
+            "user.mac": np.where(mac_m, 0, macs)}
+    tables["user"] = _relation("user", cols, {"user.mac": mac_m}, {})
+    clean["user"] = _relation("user", {**cols, "user.mac": macs}, {}, {})
+
+    for sensor, val_rate in (("swifi", 0.45), ("bluetooth", 0.35),
+                             ("temperature", 0.25), ("camera", 0.55)):
+        t = sensor
+        room = rng.integers(1, n_rooms + 1, n_sensor).astype(np.int64)
+        ts = rng.integers(0, 1440, n_sensor).astype(np.int64)
+        mac = macs[rng.integers(0, n_users, n_sensor)]
+        val = (room * 3 + ts // 60).astype(np.int64)
+        v_m = rng.random(n_sensor) < val_rate
+        room_m = rng.random(n_sensor) < 0.15
+        cols = {
+            f"{t}.room": np.where(room_m, 0, room),
+            f"{t}.time": ts,
+            f"{t}.mac": mac,
+            f"{t}.value": np.where(v_m, 0, val),
+        }
+        missing = {f"{t}.room": room_m, f"{t}.value": v_m}
+        tables[t] = _relation(t, cols, missing, {})
+        clean[t] = _relation(
+            t, {**cols, f"{t}.room": room, f"{t}.value": val}, {}, {}
+        )
     return tables, clean

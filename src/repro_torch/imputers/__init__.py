@@ -6,6 +6,8 @@ from repro_torch.imputers.base import (
 )
 from repro_torch.imputers.mean import MeanImputer
 from repro_torch.imputers.knn import KnnImputer
+from repro_torch.imputers.gbdt import GbdtImputer
+from repro_torch.imputers.locater import LocaterImputer
 
 __all__ = [
     "ImputationEngine",
@@ -14,4 +16,6 @@ __all__ = [
     "ImputeStore",
     "MeanImputer",
     "KnnImputer",
+    "GbdtImputer",
+    "LocaterImputer",
 ]

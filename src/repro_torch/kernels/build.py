@@ -54,6 +54,11 @@ _SIGNATURES = {
                             _c_void_p],
     "quipt_neighbor_mode": [_c_void_p, _c_int64, _c_int, _c_void_p,
                             _c_void_p],
+    "quipt_segment_count": [_c_void_p, _c_int64, _c_int64, _c_void_p,
+                            _c_void_p, _c_void_p],
+    "quipt_segment_reduce": [_c_void_p, _c_int, _c_int, _c_void_p, _c_void_p,
+                             _c_void_p, _c_int64, _c_int64, _c_int64,
+                             _c_void_p, _c_void_p],
 }
 
 _lock = threading.Lock()

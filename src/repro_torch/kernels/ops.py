@@ -11,11 +11,14 @@
 Every op with ``impl=`` resolves it through a ``resolve_*_impl`` function:
 explicit ``impl`` > the ``QUIPT_<OP>_IMPL`` env knob > the default.  For
 the bloom probe, the masked distance and the hash join the default is
-``cuda`` for CUDA tensors and ``ref`` for CPU tensors; the neighbour
-aggregation defaults to ``numpy``, as in the reference package, and the
-engine's join spine (``core.triggers.resolve_join_impl``) defaults to the
-numpy sort-join.  Nothing falls back from the kernel to the plain version
-on the card.
+``cuda`` for CUDA tensors and ``ref`` for CPU tensors.  Three defaults
+stay the numpy member, as in the reference package: the neighbour
+aggregation (``QUIPT_KNN_IMPL``), the segment reduction of the compiled
+executor's grouped aggregates (``QUIPT_SEGMENT_IMPL``), and the engine's
+join spine (``core.triggers.resolve_join_impl``, the numpy sort-join).
+Every ported kernel has its ``cuda`` member here, the segment reduction
+included.  Nothing falls back from the kernel to the plain
+version on the card.
 """
 
 from __future__ import annotations
@@ -37,6 +40,10 @@ from repro_torch.kernels.neighbor_agg import (
     neighbor_mean as _neighbor_mean_cuda,
     neighbor_mode as _neighbor_mode_cuda,
 )
+from repro_torch.kernels.segment_ops import OPS as _SEGMENT_OPS
+from repro_torch.kernels.segment_ops import (
+    segment_reduce as _segment_reduce_cuda,
+)
 
 __all__ = [
     "bloom_probe",
@@ -49,6 +56,8 @@ __all__ = [
     "resolve_dist_impl",
     "resolve_join_impl",
     "resolve_knn_impl",
+    "resolve_segment_impl",
+    "segment_reduce",
     "smallest_k",
     "sort_join",
 ]
@@ -325,3 +334,96 @@ def _neighbor_aggregate_torch(neigh, categorical: bool, impl: str
         mean = _neighbor_mean_cuda if impl == "cuda" else _ref.neighbor_mean_ref
         out = mean(vals)
     return out.cpu().numpy().astype(np.float64)
+
+
+def resolve_segment_impl(impl: Optional[str] = None) -> str:
+    """Segment-reduction dispatch: explicit ``impl`` > ``QUIPT_SEGMENT_IMPL``
+    > ``"numpy"`` (the per-segment host member, bit-identical to the
+    interpreter's per-group reductions, as in the reference)."""
+    if impl is None:
+        return env_choice("QUIPT_SEGMENT_IMPL", _IMPLS, "numpy")
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown segment impl {impl!r}")
+    return impl
+
+
+def _segment_numpy(vals: np.ndarray, seg: np.ndarray, num_segments: int,
+                   op: str) -> np.ndarray:
+    """Host member: per-segment ufunc reductions in row order (the
+    reference package's, bit for bit).
+
+    A stable argsort groups rows by segment while preserving row order
+    within each segment, so each slice is the exact sequence the
+    interpreter's boolean-mask extraction produces — float sums therefore
+    use the same pairwise accumulation and are bit-identical to
+    ``executor._aggregate``.
+    """
+    if np.issubdtype(vals.dtype, np.integer):
+        out_dtype = np.int64
+        lo, hi = np.iinfo(np.int64).min, np.iinfo(np.int64).max
+    else:
+        out_dtype = np.float64
+        lo, hi = -np.inf, np.inf
+    ident = {"sum": 0, "min": hi, "max": lo}[op]
+    out = np.full(num_segments, ident, dtype=out_dtype)
+    order = np.argsort(seg, kind="stable")
+    sv = vals[order]
+    bounds = np.searchsorted(seg[order], np.arange(num_segments + 1))
+    for i in range(num_segments):
+        sl = sv[bounds[i]:bounds[i + 1]]
+        if len(sl) == 0:
+            continue
+        out[i] = sl.sum() if op == "sum" else (
+            sl.min() if op == "min" else sl.max()
+        )
+    return out
+
+
+def segment_reduce(values, seg_ids, num_segments: int, op: str, *,
+                   impl: Optional[str] = None, device="cuda") -> np.ndarray:
+    """Grouped-aggregate segment reduction: ``(n,)`` values + ``(n,)``
+    segment ids in ``[0, num_segments)`` → ``(num_segments,)`` host array of
+    per-segment COUNT/SUM/MIN/MAX (int64 for counts and integer values,
+    float64 otherwise).
+
+    ``values`` is ignored for ``op="count"`` (pass None): the count comes
+    from the ids alone.  Rows with a negative id are dropped.  Empty
+    segments hold the reduction identity (count 0, sum 0, min/max the
+    dtype's extreme) — callers mask them via the count op.
+
+    ``impl`` (or ``QUIPT_SEGMENT_IMPL``): ``numpy`` (default; the
+    reference's host member), ``ref`` (the plain torch version on
+    ``device``) or ``cuda`` (the kernels ``csrc/segment_reduce.cu``; their
+    plain version on a CPU device).  ``ref`` and ``cuda`` copy the ``(n,)``
+    ids and values to ``device`` and only the ``(num_segments,)`` result
+    back; they compute in int64/float64 and sum floats in numpy's pairwise
+    order, so all three members agree exactly (float32 values are summed
+    as float64 there).  ``num_segments == 0`` and ``n == 0`` are answered
+    on the host, as in the reference."""
+    impl = resolve_segment_impl(impl)
+    if op not in _SEGMENT_OPS:
+        raise ValueError(f"unknown segment op {op!r}")
+    seg = np.ascontiguousarray(np.asarray(seg_ids, dtype=np.int64))
+    num_segments = int(num_segments)
+    if op == "count":
+        vals = np.ones(len(seg), dtype=np.int64)
+    else:
+        vals = np.asarray(values)
+        if vals.shape != seg.shape:
+            raise ValueError(
+                f"values {vals.shape} and seg_ids {seg.shape} disagree"
+            )
+    integer = np.issubdtype(vals.dtype, np.integer)
+    if num_segments == 0:
+        return np.zeros(0, dtype=np.int64 if integer else np.float64)
+    if impl == "numpy" or len(seg) == 0:
+        return _segment_numpy(vals, seg, num_segments,
+                              "sum" if op == "count" else op)
+    dev = resolve_device(device)
+    seg_t = torch.from_numpy(seg).to(dev)
+    vals_t = None if op == "count" else torch.from_numpy(
+        np.ascontiguousarray(vals, dtype=np.int64 if integer
+                             else np.float64)).to(dev)
+    reduce = _segment_reduce_cuda if impl == "cuda" \
+        else _ref.segment_reduce_ref
+    return reduce(vals_t, seg_t, num_segments, op).cpu().numpy()

@@ -6,14 +6,17 @@ them against the reference package's oracles; ``chip_smoke.py`` holds each
 kernel against them on the card.  The masked distance and the neighbour
 mean repeat their kernels' arithmetic operation for operation, so on the
 card the two agree bit for bit; the hash join and the neighbour mode are
-exact by nature.
+exact by nature.  The segment reduction computes in int64/float64 and sums
+floats in numpy's pairwise order, so it equals the numpy member exactly.
 """
 
 from __future__ import annotations
 
-import torch
+import functools
+from typing import Optional, Tuple
 
-from typing import Tuple
+import numpy as np
+import torch
 
 from repro_torch.kernels.hashing import MULTIPLIERS, OFFSETS
 
@@ -25,6 +28,8 @@ __all__ = [
     "masked_distance_ref",
     "neighbor_mean_ref",
     "neighbor_mode_ref",
+    "numpy_sum_block",
+    "segment_reduce_ref",
 ]
 
 _U32 = 0xFFFFFFFF
@@ -162,3 +167,170 @@ def neighbor_mode_ref(vals: torch.Tensor) -> torch.Tensor:
     big = torch.iinfo(vals.dtype).max
     return torch.where(counts == top, vals,
                        torch.full_like(vals, big)).min(dim=1).values
+
+
+# numpy's float64 sum (``np.add.reduce`` on a contiguous slice): the reduce
+# hands its inner loop blocks of the array (numpy_sum_block() values each),
+# adding each block's pairwise sum to an accumulator that starts at 0.0;
+# the pairwise sum splits a block longer than 128 values at
+# n/2 - (n/2 mod 8) and sums a block of at most 128 with eight running sums
+# (numpy's ``pairwise_sum``)
+_NP_LEAF = 128
+# block sizes numpy's reduce hands its inner loop: 8,192 values (its buffer,
+# up to numpy 2.2), 0 for the whole slice (numpy 2.3 grows the inner loop
+# of a reduction that needs no buffering), else a power-of-two multiple
+_NP_BLOCKS = (8192, 0) + tuple(8192 << k for k in range(1, 10))
+
+
+def _pairwise_tree(lo: np.ndarray, n: np.ndarray):
+    """The levels of numpy's pairwise recursion over blocks ``(lo, n)``:
+    per level ``(lo, n, inner)``, where an inner node's children are the
+    next level's entries ``2 * j`` and ``2 * j + 1`` for the j-th inner
+    node (left half, then right half)."""
+    levels = []
+    while len(lo):
+        inner = n > _NP_LEAF
+        half = n[inner] // 2
+        n2 = half - half % 8
+        levels.append((lo, n, inner))
+        lo = np.stack([lo[inner], lo[inner] + n2], axis=1).ravel()
+        n = np.stack([n2, n[inner] - n2], axis=1).ravel()
+    return levels
+
+
+def _leaf_sums(sv: torch.Tensor, lo: np.ndarray, n: np.ndarray
+               ) -> torch.Tensor:
+    """numpy's sum of each block ``sv[lo:lo + n]`` with ``n <= 128``: eight
+    running sums over the largest multiple of 8 (none when ``n < 8``),
+    combined as ``((r0+r1)+(r2+r3))+((r4+r5)+(r6+r7))``, then the rest in
+    order.  Padding adds +0.0, which changes no sum but a zero's sign, and
+    a zero's sign does not survive the final ``0.0 +`` of the reduce."""
+    dev = sv.device
+    width = max(8, int(-(-int(n.max()) // 8) * 8))
+    cols = torch.arange(width, device=dev)
+    lo_t = torch.from_numpy(lo).to(dev)
+    n_t = torch.from_numpy(n).to(dev)
+    idx = (lo_t[:, None] + cols).clamp_(max=max(len(sv) - 1, 0))
+    zero = torch.zeros((), dtype=sv.dtype, device=dev)
+    blocks = torch.where(cols < n_t[:, None], sv[idx], zero)
+    m8 = torch.where(n_t >= 8, n_t - n_t % 8, torch.zeros_like(n_t))
+    acc = torch.zeros(len(n), 8, dtype=sv.dtype, device=dev)
+    for i in range(0, width, 8):
+        acc = acc + torch.where((i < m8)[:, None], blocks[:, i:i + 8], zero)
+    r = acc.unbind(1)
+    res = ((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5]) + (r[6] + r[7]))
+    for t in range(7):
+        col = (m8 + t).clamp(max=width - 1)
+        nxt = blocks.gather(1, col[:, None])[:, 0]
+        res = res + torch.where(t < n_t - m8, nxt, zero)
+    return res
+
+
+def _pairwise_segment_sums(sv: torch.Tensor, counts: np.ndarray,
+                           block: int) -> torch.Tensor:
+    """numpy's ``slice.sum()`` of every segment of ``sv`` (float64, rows
+    grouped by segment in row order, segment ``s`` holding ``counts[s]``
+    rows), for all segments at once, with numpy's reduce handing over
+    ``block`` values at a time (0: the whole segment)."""
+    dev = sv.device
+    num_segments = len(counts)
+    starts = np.cumsum(counts) - counts
+    block = block or max(int(counts.max(initial=0)), 1)
+    n_chunks = -(-counts // block)
+    chunk_seg = np.repeat(np.arange(num_segments), n_chunks)
+    chunk_k = (np.arange(len(chunk_seg))
+               - np.repeat(np.cumsum(n_chunks) - n_chunks, n_chunks))
+    chunk_lo = starts[chunk_seg] + chunk_k * block
+    chunk_n = np.minimum(block, counts[chunk_seg] - chunk_k * block)
+    out = torch.zeros(num_segments, dtype=sv.dtype, device=dev)
+    if len(chunk_seg) == 0:
+        return out
+    levels = _pairwise_tree(chunk_lo, chunk_n)
+    leaves = [(lv_lo[~inner], lv_n[~inner]) for lv_lo, lv_n, inner in levels]
+    flat = _leaf_sums(sv, np.concatenate([a for a, _ in leaves]),
+                      np.concatenate([b for _, b in leaves]))
+    ends = np.cumsum([len(a) for a, _ in leaves])
+    below = None  # the values of the level below, in its order
+    for depth in range(len(levels) - 1, -1, -1):
+        _, lv_n, inner = levels[depth]
+        vals = torch.empty(len(lv_n), dtype=sv.dtype, device=dev)
+        leaf_at = torch.from_numpy(np.nonzero(~inner)[0]).to(dev)
+        vals[leaf_at] = flat[ends[depth] - len(leaf_at):ends[depth]]
+        if inner.any():
+            inner_at = torch.from_numpy(np.nonzero(inner)[0]).to(dev)
+            vals[inner_at] = below[0::2] + below[1::2]
+        below = vals
+    seg_t = torch.from_numpy(chunk_seg).to(dev)
+    for k in range(int(n_chunks.max())):
+        sel = torch.from_numpy(np.nonzero(chunk_k == k)[0]).to(dev)
+        at = seg_t[sel]
+        out[at] = out[at] + below[sel]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def numpy_sum_block() -> int:
+    """How many values the installed numpy's float64 sum of a contiguous
+    array adds per inner-loop call (0: all of them).  Found once per
+    process: the first block size of ``_NP_BLOCKS`` whose pairwise order
+    reproduces numpy's bits on two fixed arrays of 4,194,311 and 1,100,003
+    zero-mean values (their sums are small against their terms, so every
+    order leaves other low bits); raises if none does."""
+    rng = np.random.default_rng(0)
+    probes = [rng.random(n) - 0.5 for n in (4_194_311, 1_100_003)]
+
+    def reproduces(block: int, a: np.ndarray) -> bool:
+        got = _pairwise_segment_sums(torch.from_numpy(a), np.array([len(a)]),
+                                     block)
+        return got.numpy().tobytes() == np.float64(a.sum()).tobytes()
+
+    for block in _NP_BLOCKS:
+        if all(reproduces(block, a) for a in probes):
+            return block
+    raise RuntimeError(
+        f"numpy {np.__version__}'s float64 sum matches the pairwise order "
+        f"at none of the block sizes {_NP_BLOCKS} (0: whole)")
+
+
+def segment_reduce_ref(vals: Optional[torch.Tensor], seg: torch.Tensor,
+                       num_segments: int, op: str) -> torch.Tensor:
+    """Grouped-aggregate reduction (the semantics of ``csrc/segment_reduce.cu``):
+    ``(n,)`` values and ``(n,)`` int64 segment ids → ``(num_segments,)``
+    per-segment ``count`` (int64; ``vals`` is ignored), ``sum``, ``min`` or
+    ``max``, in int64 for int64 values and float64 for float64 values.
+
+    A row whose id is negative (or not below ``num_segments``) is dropped.
+    Empty segments hold the identity: 0, or for ``min``/``max`` the
+    dtype's largest/smallest value (±inf for floats).  ``min``/``max`` give
+    NaN for a segment holding a NaN, as ``np.min`` does.  An int64 ``sum``
+    wraps, and a float64 ``sum`` adds each segment's rows in row order in
+    numpy's pairwise order, so every op equals the numpy member
+    (``ops._segment_numpy``) exactly."""
+    keep = (seg >= 0) & (seg < num_segments)
+    s = seg[keep]
+    counts = torch.bincount(s, minlength=num_segments)
+    if op == "count":
+        return counts
+    v = vals[keep]
+    if op == "sum":
+        if not v.is_floating_point():
+            out = torch.zeros(num_segments, dtype=v.dtype, device=v.device)
+            return out.index_add_(0, s, v)
+        order = torch.sort(s, stable=True).indices
+        return _pairwise_segment_sums(v[order], counts.cpu().numpy(),
+                                      numpy_sum_block())
+    if op not in ("min", "max"):
+        raise ValueError(f"unknown segment op {op!r}")
+    if v.is_floating_point():
+        ident = float("inf") if op == "min" else float("-inf")
+    else:
+        info = torch.iinfo(v.dtype)
+        ident = info.max if op == "min" else info.min
+    out = torch.full((num_segments,), ident, dtype=v.dtype, device=v.device)
+    if not v.is_floating_point():
+        return out.scatter_reduce_(0, s, v, "a" + op, include_self=True)
+    nan = torch.isnan(v)
+    out.scatter_reduce_(0, s, torch.where(nan, torch.full_like(v, ident), v),
+                        "a" + op, include_self=True)
+    has_nan = torch.bincount(s[nan], minlength=num_segments) > 0
+    return torch.where(has_nan, torch.full_like(out, float("nan")), out)

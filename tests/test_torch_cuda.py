@@ -22,6 +22,7 @@ from repro_torch.kernels import knn_distance as kd
 from repro_torch.kernels import neighbor_agg as na
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels import segment_ops as so
 from repro_torch.kernels.hashing import fold64
 
 pytestmark = pytest.mark.cuda
@@ -202,3 +203,118 @@ def test_neighbor_wrappers_reject_bad_input(cuda_device):
                                      device=cuda_device))
     with pytest.raises(ValueError):
         na.neighbor_mean(torch.zeros((3, 2), device=cuda_device).t())
+
+
+# --------------------------------------------------------------------------- #
+# segment reduction
+# --------------------------------------------------------------------------- #
+def segment_case(n: int, num_segments: int, seed: int):
+    """``n`` rows into ``num_segments`` segments, every seventh segment
+    empty, 3% of the ids negative; float64 values over 16 decades and int64
+    values near the int64 limits (sums wrap)."""
+    rng = np.random.default_rng(seed)
+    live = np.arange(num_segments)
+    if num_segments > 1:
+        live = live[live % 7 != 3]
+    seg = live[rng.integers(0, len(live), n)].astype(np.int64)
+    seg[rng.random(n) < 0.03] = -1
+    fvals = rng.normal(size=n) * 10.0 ** rng.integers(-8, 8, n)
+    ivals = rng.integers(-(2**62), 2**62, n, dtype=np.int64)
+    return seg, fvals, ivals
+
+
+@pytest.mark.parametrize("n,num_segments", [
+    (1000, 1), (1000, 32), (328_358, 3166), (1_000_000, 500_000),
+    (1_000_000, 1),
+])
+@pytest.mark.parametrize("op", ["count", "sum", "min", "max"])
+def test_segment_reduce_kernel_bitwise_equals_plain_and_numpy(
+        cuda_device, n, num_segments, op):
+    seg, fvals, ivals = segment_case(n, num_segments, n + num_segments)
+    st = torch.from_numpy(seg).to(cuda_device)
+    for vals in (fvals, ivals):
+        vt = torch.from_numpy(vals).to(cuda_device)
+        before = so.launches
+        got = so.segment_reduce(vt, st, num_segments, op)
+        torch.cuda.synchronize()
+        assert so.launches == before + 1
+        want = kref.segment_reduce_ref(vt, st, num_segments, op)
+        assert got.dtype == want.dtype
+        assert got.cpu().numpy().tobytes() == want.cpu().numpy().tobytes()
+        oracle = kops.segment_reduce(None if op == "count" else vals, seg,
+                                     num_segments, op, impl="numpy")
+        assert got.cpu().numpy().tobytes() == oracle.tobytes()
+
+
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_segment_reduce_kernel_nan(cuda_device, op):
+    vals = np.array([1.0, np.nan, 2.0, -np.inf, 5.0, np.nan, 3.0, 0.5])
+    seg = np.array([0, 0, 1, 1, 2, 3, 3, -1], dtype=np.int64)
+    vt = torch.from_numpy(vals).to(cuda_device)
+    st = torch.from_numpy(seg).to(cuda_device)
+    got = so.segment_reduce(vt, st, 5, op).cpu().numpy()
+    want = kref.segment_reduce_ref(vt, st, 5, op).cpu().numpy()
+    oracle = kops.segment_reduce(vals, seg, 5, op, impl="numpy")
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, oracle)
+    assert np.isnan(got[[0, 3]]).all()
+
+
+def test_segment_reduce_ops_on_card(cuda_device):
+    seg, fvals, _ = segment_case(5000, 40, 9)
+    for impl in ("ref", "cuda"):
+        for op in ("count", "sum", "min", "max"):
+            got = kops.segment_reduce(fvals, seg, 40, op, impl=impl,
+                                      device=cuda_device)
+            want = kops.segment_reduce(fvals, seg, 40, op, impl="numpy")
+            assert got.tobytes() == want.tobytes(), (impl, op)
+
+
+def test_segment_wrapper_rejects_bad_input(cuda_device):
+    seg = torch.zeros(4, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError):
+        so.segment_reduce(seg.float(), seg, 2, "sum")
+    with pytest.raises(ValueError):
+        so.segment_reduce(seg.double(), seg.to(torch.int32), 2, "sum")
+    with pytest.raises(ValueError):
+        so.segment_reduce(seg.double().cpu(), seg, 2, "sum")
+    with pytest.raises(ValueError):
+        so.segment_reduce(seg.double(), seg, 2, "mean")
+
+
+# --------------------------------------------------------------------------- #
+# compiled plans through the kernels
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("dataset", ["wifi", "cdc"])
+def test_compiled_engine_through_the_kernels(cuda_device, monkeypatch,
+                                             dataset):
+    """The exp1 queries at the generators' sizes, compiled, with the join
+    spine and the grouped aggregates on the card: the same answers and
+    imputation counts as the numpy members, and the segment kernel
+    launched."""
+    from repro_torch.core.executor import execute_quip
+    from repro_torch.data.queries import workload
+    from repro_torch.data.synthetic import cdc_dataset, wifi_dataset
+    from repro_torch.imputers import ImputationEngine, KnnImputer
+
+    tables = (wifi_dataset if dataset == "wifi" else cdc_dataset)()[0]
+    queries = workload(dataset, tables, kind="random", n_queries=6, seed=7)
+
+    def run(q, join_impl, segment_impl):
+        monkeypatch.setenv("QUIPT_SEGMENT_IMPL", segment_impl)
+        engine = ImputationEngine(
+            {t: r.copy() for t, r in tables.items()},
+            default=lambda: KnnImputer(k=5, device=cuda_device))
+        return execute_quip(q, tables, engine, strategy="eager",
+                            use_vf=False, minmax_opt=False,
+                            exec_impl="compiled", join_impl=join_impl,
+                            device=cuda_device)
+
+    so.launches = hj.build_launches = 0
+    for i, q in enumerate(queries):
+        got = run(q, "cuda", "cuda")
+        want = run(q, "numpy", "numpy")
+        assert got.counters.compiled_hits == 1, i
+        assert got.answer_tuples() == want.answer_tuples(), i
+        assert got.counters.imputations == want.counters.imputations, i
+    assert so.launches > 0 and hj.build_launches > 0

@@ -19,6 +19,7 @@ from repro.data.synthetic import cdc_dataset as jax_cdc
 from repro.data.synthetic import wifi_dataset as jax_wifi
 from repro.imputers.knn import KnnImputer as JaxKnn
 from repro_torch.core import executor
+from repro_torch.core.compiled import resolve_exec_impl
 from repro_torch.core.bloom import BloomFilter
 from repro_torch.core.env import ENV_REGISTRY
 from repro_torch.core.triggers import multi_match, resolve_join_impl
@@ -221,6 +222,8 @@ _RESOLVERS = {
     "QUIPT_DIST_IMPL": lambda: kops.resolve_dist_impl(),
     "QUIPT_KNN_IMPL": lambda: kops.resolve_knn_impl(),
     "QUIPT_JOIN_IMPL": lambda: resolve_join_impl(),
+    "QUIPT_SEGMENT_IMPL": lambda: kops.resolve_segment_impl(),
+    "QUIPT_EXEC_IMPL": lambda: resolve_exec_impl(),
 }
 
 
@@ -300,16 +303,30 @@ def test_knn_impl_resolver_accepts_every_member(monkeypatch, impl):
         kops.resolve_knn_impl("pallas")
 
 
-def test_unported_exec_impl_raises():
+@pytest.mark.parametrize("exec_impl,env,want", [
+    (None, None, "interp"), ("interp", "compiled", "interp"),
+    ("compiled", None, "compiled"), (None, "compiled", "compiled"),
+])
+def test_exec_impl_resolves_explicit_then_env(monkeypatch, exec_impl, env,
+                                              want):
+    """``exec_impl`` > ``QUIPT_EXEC_IMPL`` > the interpreter; an eligible
+    plan (eager, VF lists off, no MIN/MAX pushdown) runs compiled."""
+    if env is None:
+        monkeypatch.delenv("QUIPT_EXEC_IMPL", raising=False)
+    else:
+        monkeypatch.setenv("QUIPT_EXEC_IMPL", env)
+    assert resolve_exec_impl(exec_impl) == want
     tables = to_port_tables(jax_cdc(np.random.default_rng(2), n_demo=30,
                                     n_labs=30, n_exams=30)[0])
     q = workload("cdc", tables, n_queries=1, seed=7)[0]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        executor.execute_quip(q, tables,
-                              ImputationEngine(tables, default=MeanImputer),
-                              exec_impl="compiled", device="cpu")
-    with pytest.raises(ValueError):
-        executor.resolve_exec_impl("bogus")
+    res = executor.execute_quip(
+        q, tables, ImputationEngine(tables, default=MeanImputer),
+        strategy="eager", use_vf=False, minmax_opt=False,
+        exec_impl=exec_impl, device="cpu")
+    assert res.counters.exec_impl == want
+    assert res.counters.compiled_hits == int(want == "compiled")
+    with pytest.raises(ValueError, match="unknown exec impl"):
+        resolve_exec_impl("bogus")
 
 
 # --------------------------------------------------------------------------- #
