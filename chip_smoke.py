@@ -19,6 +19,17 @@ cycle, in two configurations of the main path:
   aggregates through the segment-reduce kernels
   (``QUIPT_SEGMENT_IMPL=cuda``).
 
+Slice 4 is the dense LM serving path: qwen2.5-3b at full width and depth
+(36 layers, d_model 2048, random weights from a seed) with
+``attn_impl="cuda"``, whose ``prefill`` runs the flash-attention kernel in
+every layer.  In float32 the kernel path's prefill (batch 2 x 4096 tokens)
+must equal the plain path's (``QUIPT_ATTN_IMPL=ref``) within 1e-3 of the
+largest logit with the same argmax in every row, and a 128-token prompt
+streamed through ``decode_step`` must equal its prefill the same way; in
+bfloat16 (as configured) the two paths' prefills must agree to a cosine
+of 0.99 per row, and ``serve_batch`` serves 4 prompts of 128 tokens with
+32 greedy tokens each.
+
 Each configuration runs once through the kernels and once through the plain
 versions, whose answers and imputation counts must agree; slice 2's wifi
 answers must also equal slice 1's.  The last phases check the paper's
@@ -38,6 +49,7 @@ the repository beside it, the script exits non-zero.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import hashlib
 import json
 import os
@@ -57,13 +69,15 @@ ROOT = Path(__file__).resolve().parent
 # published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12  # CUDA cores, no tensor cores
+BF16_TENSOR_OPS_PER_S = 989e12  # dense, tensor cores
 
 # the device functions of src/repro_torch/csrc, as the profiler names them
 PORT_KERNELS = ("bloom_probe_kernel", "masked_distance_kernel",
                 "join_insert_kernel", "join_place_kernel",
                 "join_probe_kernel", "join_emit_kernel",
                 "neighbor_mean_kernel", "neighbor_mode_kernel",
-                "segment_count_kernel", "segment_reduce_kernel")
+                "segment_count_kernel", "segment_reduce_kernel",
+                "flash_attention_kernel")
 
 KNN_COST = 2e-3  # simulated seconds per KNN value, as benchmarks/common.py
 WIFI_FULL = dict(n_users=4000, n_wifi=1_000_000, n_occ=4000, n_rooms=60)
@@ -125,9 +139,9 @@ def cuda_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -569,6 +583,288 @@ def time_segment(dev, so, kref, kops, build, vals: torch.Tensor,
 
 
 # --------------------------------------------------------------------------- #
+# slice 4: flash attention and the dense LM serving path
+# --------------------------------------------------------------------------- #
+LM_ARCH = "qwen2.5-3b"
+LM_BATCH, LM_SEQ = 2, 4096  # the prefill whose 36 layers call the kernel
+LM_PROMPT = 128  # decode == prefill over this prompt
+SERVE = dict(batch=4, prompt_len=128, gen=32)
+# the reference tests' grid (tests/test_kernels.py) and masks
+ATTN_GRID = ((1, 16, 2, 1, 8), (2, 64, 4, 2, 16), (1, 96, 8, 2, 32),
+             (2, 100, 4, 4, 16))
+ATTN_MASKS = ((True, None), (False, None), (True, 24))
+# (rtol, atol). float32: the kernel and its plain version differ by ~1e-6.
+# bfloat16: both accumulate in float32 and round once to bfloat16, so they
+# may differ by one rounding step of the value, at most 2^-7 of it (rtol
+# 8e-3), or under 1e-3 where |value| < 0.125; anything more is a fault.
+ATTN_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (8e-3, 1e-3)}
+MATMUL_NAMES = ("gemm", "cutlass", "xmma", "nvjet", "cublas", "wgmma")
+
+
+def dev_us(e) -> float:
+    """An event's device time in microseconds."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def attention_inputs(dev, b, s, h, kv, d, dtype, seed: int):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d))]
+
+
+def attention_err(fa, kref, q, k, v, causal, window, what: str) -> float:
+    """Largest |kernel - plain|; raises unless every entry is within
+    ``ATTN_TOL`` of its dtype."""
+    got = fa.flash_attention(q, k, v, causal=causal, window=window).float()
+    want = kref.attention_ref(q, k, v, causal=causal, window=window).float()
+    rtol, atol = ATTN_TOL[q.dtype]
+    diff = (got - want).abs()
+    err = float(diff.max())
+    if not torch.isfinite(got).all() or bool(
+            (diff > atol + rtol * want.abs()).any()):
+        raise AssertionError(f"flash_attention differs from its plain "
+                             f"version at {what}: max |diff| {err} against "
+                             f"rtol {rtol}, atol {atol}")
+    return err
+
+
+def check_attention(dev, fa, kref) -> dict:
+    """The kernel against its plain version on the reference tests' grid
+    in float32 and bfloat16, at the slice's call in bfloat16 and float32
+    (64 key tiles, no window) and at a padded, windowed float32 call;
+    returns the largest |difference| by dtype."""
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for shape in ATTN_GRID:
+        for causal, window in ATTN_MASKS:
+            for dtype in err:
+                q, k, v = attention_inputs(dev, *shape, dtype, sum(shape))
+                err[dtype] = max(err[dtype], attention_err(
+                    fa, kref, q, k, v, causal, window,
+                    f"{shape} {dtype} causal={causal} window={window}"))
+    print(f"   flash_attention == plain on the reference tests' grid (4 "
+          f"shapes x 3 masks x f32/bf16): max |diff| f32 "
+          f"{err[torch.float32]:.3g}, bf16 {err[torch.bfloat16]:.3g}",
+          flush=True)
+    for shape, dtype, window in (
+            ((LM_BATCH, LM_SEQ, 16, 2, 128), torch.bfloat16, None),
+            ((LM_BATCH, LM_SEQ, 16, 2, 128), torch.float32, None),
+            ((1, 1000, 16, 2, 128), torch.float32, 256)):
+        q, k, v = attention_inputs(dev, *shape, dtype, 7)
+        e = attention_err(fa, kref, q, k, v, True, window,
+                          f"{shape} {dtype} window={window}")
+        err[dtype] = max(err[dtype], e)
+        print(f"   flash_attention == plain at {shape} {dtype} causal, "
+              f"window {window}: max |diff| {e:.3g}", flush=True)
+    return err
+
+
+def kept_pairs(s: int, causal: bool, window) -> int:
+    """The (query, key) pairs the masks keep."""
+    qpos = np.arange(s)
+    hi = qpos if causal else np.full(s, s - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(s, int)
+    return int((hi - lo + 1).sum())
+
+
+def time_attention(dev, fa, kref):
+    """The slice's call, (2, 4096, 16, 2, 128) bf16 causal: the kernel,
+    its plain version and ``scaled_dot_product_attention`` (timed only),
+    and the bound: 4·B·H·D·(kept pairs) operations at the bf16 tensor-core
+    peak, or q/k/v/o once over the memory."""
+    import torch.nn.functional as F
+
+    b, s, h, kv, d = LM_BATCH, LM_SEQ, 16, 2, 128
+    q, k, v = attention_inputs(dev, b, s, h, kv, d, torch.bfloat16, 5)
+    err = attention_err(fa, kref, q, k, v, True, None, "the slice's call")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    t = {
+        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v), reps=20),
+        "plain_ms": cuda_ms(lambda: kref.attention_ref(q, k, v), reps=5),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), reps=20),
+        "err": err, "shape": f"({b}, {s}, {h}, {kv}, {d}) bf16 causal",
+    }
+    ops = 4 * b * h * d * kept_pairs(s, True, None)
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    t["bound_ms"], t["bound_by"] = bound_ms(nbytes, ops,
+                                            BF16_TENSOR_OPS_PER_S)
+    print(f"   flash_attention at {t['shape']}: {ops / 1e9:.1f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB; {ops / t['ms'] / 1e9:.1f} TFLOP/s",
+          flush=True)
+    return t
+
+
+def close_logits(got, want, what: str) -> float:
+    """|got - want| within 1e-3 of the largest |logit| and the same argmax
+    in every row; returns the largest |difference|."""
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{what}: non-finite logits")
+    bound = 1e-3 * float(want.abs().max())
+    diff = float((got - want).abs().max())
+    rows = int((got.argmax(-1) != want.argmax(-1)).sum())
+    print(f"   {what}: max |diff| {diff:.4g} (bound {bound:.4g}), argmax "
+          f"differs in {rows} of {got.shape[0]} rows", flush=True)
+    if diff > bound or rows:
+        raise AssertionError(f"{what}: logits disagree")
+    return diff
+
+
+def lm_model(lm, dtype: str, seed: int, dev):
+    """qwen2.5-3b at full width and depth on the kernel path, random
+    weights from ``seed``, and a (2, 4096) prompt."""
+    cfg = dataclasses.replace(lm.get_arch(LM_ARCH), dtype=dtype,
+                              attn_impl="cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    model = lm.init_params(cfg, g, dev)
+    toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ), generator=g,
+                         device=dev)
+    print(f"   {LM_ARCH} {dtype}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_params():,} parameters, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card",
+          flush=True)
+    return cfg, model, {"tokens": toks}
+
+
+def prefill_both(lm, fa, model, cfg, batch):
+    """Prefill on the kernel path with the launch counter set to 0 just
+    before and read just after, then on the plain path, which must launch
+    nothing; returns (kernel logits, plain logits, launches)."""
+    fa.launches = 0
+    kern = lm.prefill(model, cfg, batch)
+    torch.cuda.synchronize()
+    launches = fa.launches
+    if launches != cfg.n_layers:
+        raise AssertionError(f"prefill launched the kernel {launches} times, "
+                             f"want one per layer ({cfg.n_layers})")
+    with knobs(QUIPT_ATTN_IMPL="ref"):
+        plain = lm.prefill(model, cfg, batch)
+    torch.cuda.synchronize()
+    if fa.launches != launches:
+        raise AssertionError("the plain path launched the kernel")
+    return kern, plain, launches
+
+
+def lm_f32_check(dev, lm, fa) -> int:
+    cfg, model, batch = lm_model(lm, "float32", 0, dev)
+    with torch.inference_mode():
+        kern, plain, launches = prefill_both(lm, fa, model, cfg, batch)
+        close_logits(kern, plain, f"f32 prefill {tuple(batch['tokens'].shape)}"
+                     f" kernel vs plain path")
+        prompt = batch["tokens"][:, :LM_PROMPT]
+        pre = lm.prefill(model, cfg, {"tokens": prompt})
+        caches = lm.init_caches(cfg, LM_BATCH, LM_PROMPT, device=dev)
+        for t in range(LM_PROMPT):
+            pos = torch.full((LM_BATCH,), t, dtype=torch.int32, device=dev)
+            logits, caches = lm.decode_step(model, caches, cfg,
+                                            prompt[:, t:t + 1], pos)
+        close_logits(logits, pre, f"f32 decode over a {LM_PROMPT}-token "
+                     f"prompt vs its prefill on the kernel path")
+    del model, caches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def prefill_seconds(lm, model, cfg, batch, reps: int = 3) -> float:
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm.prefill(model, cfg, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def profile_lm(label: str, fn, top: int) -> None:
+    """One call of ``fn`` under ``torch.profiler``: wall seconds, device
+    time split into the attention kernel, the matrix products and the
+    rest, the device idle share and the number of device kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    split = {"attention kernel": 0.0, "matmuls": 0.0, "rest": 0.0}
+    for e in rows:
+        name = e.key.lower()
+        if "flash_attention_kernel" in name:
+            split["attention kernel"] += dev_us(e) / 1e6
+        elif any(m in name for m in MATMUL_NAMES):
+            split["matmuls"] += dev_us(e) / 1e6
+        else:
+            split["rest"] += dev_us(e) / 1e6
+    busy = sum(split.values())
+    print(f"   profiled {label}: wall {wall:.4f}s, device busy {busy:.4f}s, "
+          f"device idle share {1 - busy / wall:.3f}, "
+          f"{sum(e.count for e in rows)} device kernels; "
+          + ", ".join(f"{k} {v:.4f}s" for k, v in split.items()), flush=True)
+    if not rows:
+        print("   the profiler recorded no device time: the split is not "
+              "measured", flush=True)
+    for e in sorted(rows, key=dev_us, reverse=True)[:top]:
+        print(f"   device {dev_us(e) / 1e3:10.2f} ms  {e.count:6d} calls  "
+              f"{e.key[:90]}", flush=True)
+
+
+def lm_bf16_run(dev, lm, fa) -> int:
+    """qwen2.5-3b as configured (bf16): the kernel and plain prefills (a
+    cosine of 0.99 per row), their seconds, one profiled prefill, then
+    ``serve_batch``.  Returns the kernel's launches in one prefill."""
+    import torch.nn.functional as F
+
+    cfg, model, batch = lm_model(lm, "bfloat16", 1, dev)
+    with torch.inference_mode():
+        kern, plain, launches = prefill_both(lm, fa, model, cfg, batch)
+        if not (torch.isfinite(kern).all() and torch.isfinite(plain).all()):
+            raise AssertionError("bf16 prefill: non-finite logits")
+        cos = F.cosine_similarity(kern, plain, dim=-1)
+        print(f"   bf16 prefill kernel vs plain path: max |diff| "
+              f"{float((kern - plain).abs().max()):.4g} (largest |logit| "
+              f"{float(plain.abs().max()):.4g}), cosine per row "
+              f"{[round(float(c), 6) for c in cos]}", flush=True)
+        if float(cos.min()) < 0.99:
+            raise AssertionError("bf16 prefill: cosine below 0.99")
+        kernel_s = prefill_seconds(lm, model, cfg, batch)
+        with knobs(QUIPT_ATTN_IMPL="ref"):
+            plain_s = prefill_seconds(lm, model, cfg, batch)
+        print(f"   bf16 prefill {tuple(batch['tokens'].shape)}: kernel path "
+              f"{kernel_s:.4f}s, plain path {plain_s:.4f}s (median of 3)",
+              flush=True)
+        profile_lm("bf16 prefill", lambda: lm.prefill(model, cfg, batch),
+                   top=8)
+        # one decode step at serve_batch's batch, past a warmed-up prompt
+        b, t = SERVE["batch"], SERVE["prompt_len"]
+        caches = lm.init_caches(cfg, b, t + SERVE["gen"], device=dev)
+        toks = batch["tokens"][:1, :b].reshape(b, 1)
+        for p in range(t):
+            pos = torch.full((b,), p, dtype=torch.int32, device=dev)
+            lm.decode_step(model, caches, cfg, toks, pos)
+        profile_lm(f"bf16 decode step (batch {b}, position {t})",
+                   lambda: lm.decode_step(model, caches, cfg, toks, pos + 1),
+                   top=4)
+    del model, caches
+    torch.cuda.empty_cache()
+    out = lm.serve_batch(cfg, seed=0, device=dev, **SERVE)
+    toks = out["tokens"]
+    if toks.shape != (SERVE["batch"], SERVE["gen"]) or not (
+            (toks >= 0) & (toks < cfg.vocab)).all():
+        raise AssertionError(f"serve_batch returned {toks.shape} tokens out "
+                             f"of range")
+    print(f"   serve_batch {SERVE}: prefill by decode {out['prefill_s']:.3f}s"
+          f", decode {out['decode_s']:.3f}s, {out['tok_per_s']:.1f} tok/s",
+          flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------------------- #
 # end to end
 # --------------------------------------------------------------------------- #
 class Launches:
@@ -805,10 +1101,6 @@ def profile_query(tables, q, dev, mods, cfg, label: str) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in rows) / 1e6
@@ -978,12 +1270,21 @@ def main() -> int:
         from repro_torch.kernels import ref as kref
         from repro_torch.kernels import segment_ops as so
         from repro_torch.kernels.hashing import fold64
+        from repro_torch.configs import get_arch
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.launch.serve import serve_batch
+        from repro_torch.models import (decode_step, init_caches,
+                                        init_params, prefill)
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script ({exc})",
               file=sys.stderr)
         return 3
     mods = (executor, imputers, (executor, imputers_base))
     launches = Launches(bp, kd, hj, na, so)
+    lm = types.SimpleNamespace(get_arch=get_arch, init_params=init_params,
+                               prefill=prefill, decode_step=decode_step,
+                               init_caches=init_caches,
+                               serve_batch=serve_batch)
     dev = torch.device("cuda")
     card = card_line()
     t_start = time.perf_counter()
@@ -991,6 +1292,9 @@ def main() -> int:
     with phase("device"):
         print(f"   {card}; torch {torch.__version__}, CUDA "
               f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+        # the float32 checks hold full float32 products
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 matrix products are enabled")
     with phase("build"):
         t0 = time.perf_counter()
         build.library()
@@ -1031,6 +1335,17 @@ def main() -> int:
         print(f"   numpy {np.__version__} sums floats in blocks of "
               f"{kref.numpy_sum_block()} values (0: whole)", flush=True)
         seg_check_err = check_segment(dev, so, kref, kops)
+    with phase("flash_attention against its plain version"):
+        attn_check_err = check_attention(dev, fa, kref)
+    with phase("flash_attention times at the slice's call"):
+        attn_t = time_attention(dev, fa, kref)
+    with phase(f"slice 4: {LM_ARCH} float32 at full width: kernel path == "
+               f"plain path, decode == prefill"):
+        lm_f32_check(dev, lm, fa)
+    with phase(f"slice 4: {LM_ARCH} bfloat16 as configured: prefill on both "
+               f"paths, profile, serve_batch"):
+        lm_launches = lm_bf16_run(dev, lm, fa)
+    torch.cuda.empty_cache()
 
     with recording(kops) as rec:
         with phase("end to end: wifi at full scale, slice 1"):
@@ -1117,7 +1432,8 @@ def main() -> int:
                         ("hash_join_probe", probe_t),
                         ("neighbor_mean", mean_t), ("neighbor_mode", mode_t),
                         ("segment_reduce count", seg_count_t),
-                        ("segment_reduce float64 sum", seg_sum_t)):
+                        ("segment_reduce float64 sum", seg_sum_t),
+                        ("flash_attention", attn_t)):
             lib = t.get("library_ms")
             print(f"   {name} at {t['shape']}: median kernel {t['ms']:.4f} "
                   f"ms, plain {t['plain_ms']:.4f} ms, bound "
@@ -1127,6 +1443,8 @@ def main() -> int:
     print(f"   slice 1 launches: wifi {s1_wifi}, cdc {s1_cdc}")
     print(f"   slice 2 launches: wifi {s2_wifi}, cdc {s2_cdc}")
     print(f"   slice 3 launches: wifi {s3_wifi}, cdc {s3_cdc}")
+    print(f"   slice 4 launches: flash_attention {lm_launches} per "
+          f"{LM_ARCH} prefill")
     print(f"total {time.perf_counter() - t_start:.1f}s", flush=True)
 
     csrc = "src/repro_torch/csrc/"
@@ -1162,6 +1480,10 @@ def main() -> int:
                      main_launches["segment_reduce"], seg_sum_t,
                      max(seg_check_err, seg_sum_t["err"]),
                      seg_sum_t["library_ms"]),
+        kernel_entry("flash_attention", csrc + "flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:96", lm_launches,
+                     attn_t, max(max(attn_check_err.values()), attn_t["err"]),
+                     attn_t["library_ms"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

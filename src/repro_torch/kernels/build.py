@@ -35,6 +35,7 @@ NVCC_FLAGS = (
 )
 
 _c_void_p, _c_int, _c_int64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_c_float = ctypes.c_float
 
 # C entry points: name -> argtypes (every one returns cudaGetLastError())
 _SIGNATURES = {
@@ -59,6 +60,9 @@ _SIGNATURES = {
     "quipt_segment_reduce": [_c_void_p, _c_int, _c_int, _c_void_p, _c_void_p,
                              _c_void_p, _c_int64, _c_int64, _c_int64,
                              _c_void_p, _c_void_p],
+    "quipt_flash_attention": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                              _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
+                              _c_int, _c_int, _c_float, _c_void_p],
 }
 
 _lock = threading.Lock()

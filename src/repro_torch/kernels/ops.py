@@ -17,8 +17,10 @@ aggregation (``QUIPT_KNN_IMPL``), the segment reduction of the compiled
 executor's grouped aggregates (``QUIPT_SEGMENT_IMPL``), and the engine's
 join spine (``core.triggers.resolve_join_impl``, the numpy sort-join).
 Every ported kernel has its ``cuda`` member here, the segment reduction
-included.  Nothing falls back from the kernel to the plain
-version on the card.
+included.  The flash attention has no numpy member: its knob
+(``QUIPT_ATTN_IMPL``) takes ``ref`` or ``cuda``, by default ``cuda`` on a
+CUDA tensor and ``ref`` on a CPU tensor.  Nothing falls back from the
+kernel to the plain version on the card.
 """
 
 from __future__ import annotations
@@ -31,6 +33,9 @@ import torch
 from repro_torch.core.env import env_choice
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.bloom_probe import bloom_probe as _bloom_probe_cuda
+from repro_torch.kernels.flash_attention import (
+    flash_attention as _flash_attention_cuda,
+)
 from repro_torch.kernels.hash_join import hash_join as _hash_join_cuda
 from repro_torch.kernels.hashing import MULTIPLIERS, OFFSETS
 from repro_torch.kernels.knn_distance import (
@@ -47,10 +52,12 @@ from repro_torch.kernels.segment_ops import (
 
 __all__ = [
     "bloom_probe",
+    "flash_attention",
     "hash_join_match",
     "masked_distance",
     "masked_knn",
     "neighbor_aggregate",
+    "resolve_attn_impl",
     "resolve_bloom_impl",
     "resolve_device",
     "resolve_dist_impl",
@@ -427,3 +434,36 @@ def segment_reduce(values, seg_ids, num_segments: int, op: str, *,
     reduce = _segment_reduce_cuda if impl == "cuda" \
         else _ref.segment_reduce_ref
     return reduce(vals_t, seg_t, num_segments, op).cpu().numpy()
+
+
+_ATTN_IMPLS = ("ref", "cuda")
+
+
+def resolve_attn_impl(impl: Optional[str] = None,
+                      device: torch.device = torch.device("cpu")) -> str:
+    """Flash-attention dispatch: explicit ``impl`` > ``QUIPT_ATTN_IMPL`` >
+    ``cuda`` on a CUDA device, ``ref`` on the CPU.  There is no numpy
+    member."""
+    if impl is None:
+        impl = env_choice("QUIPT_ATTN_IMPL", _ATTN_IMPLS, "auto")
+        if impl == "auto":
+            return "cuda" if device.type == "cuda" else "ref"
+    if impl not in _ATTN_IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r}")
+    return impl
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None,
+                    impl: Optional[str] = None) -> torch.Tensor:
+    """GQA attention, q (B, S, H, D) and k/v (B, S, KV, D) → (B, S, H, D):
+    ``ref`` is the plain materialised softmax (``ref.attention_ref``),
+    ``cuda`` the flash-attention kernel (on a CPU tensor, its plain
+    version)."""
+    impl = resolve_attn_impl(impl, q.device)
+    if impl == "cuda":
+        return _flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                     scale=scale)
+    return _ref.attention_ref(q, k, v, causal=causal, window=window,
+                              scale=scale)

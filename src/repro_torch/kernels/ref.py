@@ -8,6 +8,9 @@ mean repeat their kernels' arithmetic operation for operation, so on the
 card the two agree bit for bit; the hash join and the neighbour mode are
 exact by nature.  The segment reduction computes in int64/float64 and sums
 floats in numpy's pairwise order, so it equals the numpy member exactly.
+The attention materialises its float32 scores, so the flash-attention
+kernel, which never does, agrees with it to a tolerance (2e-4 in float32,
+3e-2 in bfloat16), not bit for bit.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 from repro_torch.kernels.hashing import MULTIPLIERS, OFFSETS
 
 __all__ = [
+    "attention_ref",
     "bloom_probe_ref",
     "hash_join_build_ref",
     "hash_join_probe_ref",
@@ -334,3 +338,33 @@ def segment_reduce_ref(vals: Optional[torch.Tensor], seg: torch.Tensor,
                         "a" + op, include_self=True)
     has_nan = torch.bincount(s[nan], minlength=num_segments) > 0
     return torch.where(has_nan, torch.full_like(out, float("nan")), out)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, window: Optional[int] = None,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version of the flash-attention kernel: materialised-softmax
+    GQA (``repro/kernels/ref.py attention_ref``).
+
+    q: (B, S, H, D); k/v: (B, S, KV, D), query head ``h`` reading KV head
+    ``h // (H // KV)`` → (B, S, H, D) in q's dtype.  Scores in float32,
+    scaled by ``1/sqrt(D)``; a key is kept iff ``kpos <= qpos`` (causal)
+    and ``kpos > qpos - window`` (windowed), else its score is -1e30."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    rep = h // max(kv, 1)
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    qg = q.float().reshape(b, s, kv, rep, d)
+    logits = torch.einsum("bskrd,btkd->bkrst", qg, k.float()) * scale
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(s, device=q.device)[None, :]
+    ok = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    logits.masked_fill_(~ok, -1e30)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkrst,btkd->bskrd", w, v.float())
+    return out.reshape(b, s, h, d).to(q.dtype)

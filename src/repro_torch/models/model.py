@@ -1,0 +1,171 @@
+"""Model-level API (the port of ``repro/models/model.py``): parameter init,
+loss, prefill and decode steps.
+
+Input conventions per family, as in the reference:
+
+* LM families: ``tokens``/``labels`` (B, S) integer tensors.
+* ``vlm`` / ``audio``: the modality frontend is a stub — prefill and loss
+  take precomputed ``embeds`` (B, S, d_model) plus (B, S) labels.
+* encoder-only (hubert): bidirectional attention, no decode path.
+
+The parameters are one :class:`LM` module (the reference's pytree): the
+embedding (also the output head when tied), the final norm and the blocks
+in layer order.  The functions take the config beside the module, as the
+reference's take it beside the pytree, so one set of weights runs under
+several ``attn_impl`` values.  There is no embedding scaling, as in the
+reference.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.ops import resolve_device
+from repro_torch.models.layers import RMSNorm, dense_init, softcap, torch_dtype
+from repro_torch.models.transformer import (
+    Block,
+    build_segments,
+    decode_segments,
+    forward_segments,
+    init_segment_caches,
+    layer_specs,
+)
+
+__all__ = [
+    "LM", "decode_step", "init_caches", "init_params", "loss_fn", "prefill",
+    "uses_embeds",
+]
+
+
+def uses_embeds(cfg: ArchConfig) -> bool:
+    return cfg.family in ("vlm", "audio")
+
+
+class LM(nn.Module):
+    """The model's parameters: ``embed (vocab, d)``, ``final_norm``,
+    ``blocks`` (one :class:`Block` per layer, in layer order) and, when
+    the embeddings are not tied, ``lm_head (d, vocab)``.  Weights start
+    empty until :meth:`reset_parameters` or a copy fills them."""
+
+    def __init__(self, cfg: ArchConfig, *, device=None):
+        super().__init__()
+        dt = torch_dtype(cfg.dtype)
+        self.segs = build_segments(cfg)
+        d = cfg.d_model
+        self.embed = nn.Parameter(
+            torch.empty((cfg.vocab, d), device=device, dtype=dt),
+            requires_grad=False)
+        self.final_norm = RMSNorm(d, cfg.norm_eps, device=device, dtype=dt)
+        self.blocks = nn.ModuleList(
+            Block(cfg, spec, device=device, dtype=dt)
+            for spec in layer_specs(self.segs))
+        self.lm_head = None
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(
+                torch.empty((d, cfg.vocab), device=device, dtype=dt),
+                requires_grad=False)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.embed.copy_(dense_init(generator, self.embed.shape, scale=1.0,
+                                    dtype=self.embed.dtype,
+                                    device=self.embed.device))
+        for block in self.blocks:
+            block.reset_parameters(generator)
+        if self.lm_head is not None:
+            self.lm_head.copy_(dense_init(generator, self.lm_head.shape,
+                                          dtype=self.lm_head.dtype,
+                                          device=self.lm_head.device))
+
+
+def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
+                device="cuda") -> LM:
+    """A randomly initialised model on ``device``: weights normal ×
+    ``1/sqrt(fan_in)`` (the embedding × 1), norms and biases zero, drawn
+    from ``generator`` (default: one on ``device`` seeded with 0).  The
+    draws are not JAX's: carry the reference's own parameters across with
+    ``models/convert.py`` to compare the packages."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    model = LM(cfg, device=dev)
+    model.reset_parameters(generator)
+    return model
+
+
+# --------------------------------------------------------------------------- #
+# forward
+# --------------------------------------------------------------------------- #
+def _backbone(model: LM, cfg: ArchConfig, x, positions, causal: bool,
+              remat: str) -> torch.Tensor:
+    x = forward_segments(model.blocks, cfg, model.segs, x, positions,
+                         causal=causal, remat=remat)
+    return model.final_norm(x)
+
+
+def _logits(model: LM, cfg: ArchConfig, x) -> torch.Tensor:
+    head = model.embed.T if cfg.tie_embeddings else model.lm_head
+    return softcap((x @ head).float(), cfg.logit_softcap)
+
+
+def _embed_inputs(model: LM, cfg: ArchConfig,
+                  batch: Dict[str, Any]) -> torch.Tensor:
+    if uses_embeds(cfg):
+        return batch["embeds"].to(model.embed.dtype)
+    return model.embed[batch["tokens"].long()]
+
+
+def loss_fn(model: LM, cfg: ArchConfig, batch: Dict[str, Any],
+            remat: str = "full") -> torch.Tensor:
+    """Mean next-token cross-entropy over the labels ``>= 0`` (forward
+    only: the training path is not ported yet)."""
+    x = _embed_inputs(model, cfg, batch)
+    s = x.shape[1]
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    x = _backbone(model, cfg, x, positions, not cfg.encoder_only, remat)
+    logits = _logits(model, cfg, x)
+    labels = batch["labels"].long()
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logit = torch.gather(logits, -1,
+                               labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    nll = (lse - label_logit) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def prefill(model: LM, cfg: ArchConfig, batch: Dict[str, Any],
+            remat: str = "none") -> torch.Tensor:
+    """Full-sequence forward returning last-position logits (B, vocab),
+    float32."""
+    x = _embed_inputs(model, cfg, batch)
+    s = x.shape[1]
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    x = _backbone(model, cfg, x, positions, not cfg.encoder_only, remat)
+    return _logits(model, cfg, x[:, -1:, :])[:, 0]
+
+
+# --------------------------------------------------------------------------- #
+# decode
+# --------------------------------------------------------------------------- #
+def init_caches(cfg: ArchConfig, batch: int, max_len: int,
+                device="cuda") -> List[torch.Tensor]:
+    """Zero K/V caches, one (2, B, max_len, KV, D) tensor per layer."""
+    return init_segment_caches(cfg, build_segments(cfg), batch, max_len,
+                               torch_dtype(cfg.dtype),
+                               device=resolve_device(device))
+
+
+def decode_step(model: LM, caches: List[torch.Tensor], cfg: ArchConfig,
+                tokens: torch.Tensor, pos: torch.Tensor
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """tokens: (B, 1); pos: (B,) current lengths → (logits (B, vocab)
+    float32, caches).  The caches are updated in place."""
+    x = model.embed[tokens.long()]
+    x, caches = decode_segments(model.blocks, caches, cfg, model.segs, x,
+                                pos)
+    x = model.final_norm(x)
+    return _logits(model, cfg, x)[:, 0], caches

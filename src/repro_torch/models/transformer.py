@@ -1,0 +1,172 @@
+"""Block and segment assembly (the port of ``repro/models/transformer.py``).
+
+The reference stacks each segment's blocks into arrays with a leading
+``repeats`` axis and scans them with ``lax.scan``.  Here the blocks are an
+``nn.ModuleList`` in layer order and the loops are plain Python; the
+segments (:class:`SegmentSpec`) still describe which kind each layer is,
+so local/global patterns follow the reference layer for layer.
+
+Dense attention blocks are ported.  SSM, MoE and weight-shared attention
+blocks raise ``NotImplementedError`` (ROADMAP Queue 1 item 12).  ``remat``
+is accepted and ignored: it changes no forward value.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import MLP, RMSNorm
+
+__all__ = ["Block", "BlockSpec", "SegmentSpec", "build_segments",
+           "decode_segments", "forward_segments", "init_segment_caches",
+           "layer_specs"]
+
+_TODO = "ROADMAP Queue 1 item 12: the LM substrate's {} blocks"
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSpec:
+    kind: str  # "attn" | "local" | "ssm"
+    moe: bool
+    mlp: bool
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentSpec:
+    pattern: Tuple[BlockSpec, ...]
+    repeats: int
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.pattern) * self.repeats
+
+
+def _block_spec(cfg: ArchConfig, i: int) -> BlockSpec:
+    kind = cfg.layer_kind(i)
+    is_moe = cfg.is_moe and i >= cfg.first_dense_layers
+    has_mlp = kind != "ssm" and (cfg.d_ff > 0 or is_moe)
+    return BlockSpec(kind, is_moe, has_mlp)
+
+
+def build_segments(cfg: ArchConfig) -> List[SegmentSpec]:
+    specs = [_block_spec(cfg, i) for i in range(cfg.n_layers)]
+    if cfg.family == "hybrid":
+        period = max(cfg.hybrid_attn_period, 1)
+    elif cfg.is_moe:
+        period = 1
+    else:
+        period = len(cfg.layer_pattern)
+    segments: List[SegmentSpec] = []
+    i = 0
+    while i < len(specs):
+        # longest run of repeated periods starting at i
+        pat = tuple(specs[i : i + period])
+        if len(pat) < period:
+            pat = tuple(specs[i:])
+        r = 1
+        while specs[i + r * len(pat) : i + (r + 1) * len(pat)] == list(pat):
+            r += 1
+        segments.append(SegmentSpec(pat, r))
+        i += r * len(pat)
+    return segments
+
+
+def layer_specs(segs: List[SegmentSpec]) -> List[BlockSpec]:
+    """Every layer's spec, in layer order."""
+    return [spec for seg in segs for _ in range(seg.repeats)
+            for spec in seg.pattern]
+
+
+def _check_ported(cfg: ArchConfig, spec: BlockSpec) -> None:
+    if spec.kind == "ssm":
+        raise NotImplementedError(_TODO.format("SSM/hybrid"))
+    if spec.moe or cfg.is_moe:
+        raise NotImplementedError(_TODO.format("MoE"))
+    if cfg.shared_attn:
+        raise NotImplementedError(_TODO.format("weight-shared attention"))
+    if cfg.mla:
+        raise NotImplementedError(_TODO.format("MLA"))
+
+
+class Block(nn.Module):
+    """One dense block: ``ln1``, the GQA ``mixer``, and with an MLP
+    ``ln2`` and ``mlp``."""
+
+    def __init__(self, cfg: ArchConfig, spec: BlockSpec, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        _check_ported(cfg, spec)
+        d = cfg.d_model
+        self.ln1 = RMSNorm(d, cfg.norm_eps, device=device, dtype=dtype)
+        self.mixer = attn.GQA(cfg, device=device, dtype=dtype)
+        self.ln2 = self.mlp = None
+        if spec.mlp:
+            self.ln2 = RMSNorm(d, cfg.norm_eps, device=device, dtype=dtype)
+            self.mlp = MLP(d, cfg.d_ff, cfg.activation, device=device,
+                           dtype=dtype)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.mixer.reset_parameters(generator)
+        if self.mlp is not None:
+            self.mlp.reset_parameters(generator)
+
+
+# --------------------------------------------------------------------------- #
+# forward (train / prefill)
+# --------------------------------------------------------------------------- #
+def _apply_block(p: Block, cfg: ArchConfig, spec: BlockSpec, x, positions,
+                 causal: bool) -> torch.Tensor:
+    h = p.ln1(x)
+    x = x + attn.gqa_apply(p.mixer, cfg, h, positions,
+                           local=spec.kind == "local", causal=causal)
+    if spec.mlp:
+        x = x + p.mlp(p.ln2(x))
+    return x
+
+
+def forward_segments(blocks: nn.ModuleList, cfg: ArchConfig,
+                     segs: List[SegmentSpec], x, positions,
+                     causal: bool = True, remat: str = "full"
+                     ) -> torch.Tensor:
+    """Every block in layer order.  ``remat`` (the reference's
+    rematerialisation policy) changes no forward value and is ignored."""
+    del remat
+    for p, spec in zip(blocks, layer_specs(segs)):
+        x = _apply_block(p, cfg, spec, x, positions, causal)
+    return x
+
+
+# --------------------------------------------------------------------------- #
+# decode (single token, cached)
+# --------------------------------------------------------------------------- #
+def init_segment_caches(cfg: ArchConfig, segs: List[SegmentSpec],
+                        batch: int, max_len: int, dtype,
+                        device=None) -> List[torch.Tensor]:
+    """One zero (2, B, T, KV, D) K/V cache per layer, in layer order."""
+    caches = []
+    for spec in layer_specs(segs):
+        _check_ported(cfg, spec)
+        caches.append(attn.init_kv_cache(cfg, batch, max_len, dtype,
+                                         device=device))
+    return caches
+
+
+def decode_segments(blocks: nn.ModuleList, caches: List[torch.Tensor],
+                    cfg: ArchConfig, segs: List[SegmentSpec], x, pos
+                    ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """x: (B,1,d); pos: (B,) current length.  Returns (x, caches); the
+    caches are updated in place."""
+    for p, spec, cache in zip(blocks, layer_specs(segs), caches):
+        h = p.ln1(x)
+        mixed, _ = attn.gqa_decode(p.mixer, cfg, h, cache, pos,
+                                   local=spec.kind == "local")
+        x = x + mixed
+        if spec.mlp:
+            x = x + p.mlp(p.ln2(x))
+    return x, caches

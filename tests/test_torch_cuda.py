@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import bloom_probe as bp
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import hash_join as hj
 from repro_torch.kernels import knn_distance as kd
 from repro_torch.kernels import neighbor_agg as na
@@ -318,3 +319,50 @@ def test_compiled_engine_through_the_kernels(cuda_device, monkeypatch,
         assert got.answer_tuples() == want.answer_tuples(), i
         assert got.counters.imputations == want.counters.imputations, i
     assert so.launches > 0 and hj.build_launches > 0
+
+
+# --------------------------------------------------------------------------- #
+# flash attention
+# --------------------------------------------------------------------------- #
+_ATTN_SHAPES = [(1, 16, 2, 1, 8), (2, 64, 4, 2, 16), (1, 96, 8, 2, 32),
+                (2, 100, 4, 4, 16), (1, 200, 16, 2, 128), (1, 70, 4, 1, 256),
+                (2, 33, 6, 3, 40)]
+_ATTN_MASKS = [(True, None), (False, None), (True, 24)]
+
+
+@pytest.mark.parametrize("b,s,h,kv,d", _ATTN_SHAPES)
+@pytest.mark.parametrize("causal,window", _ATTN_MASKS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_equals_plain(cuda_device, b, s, h, kv, d,
+                                             causal, window, dtype):
+    """The reference tests' grid (plus head widths 128, 256 and 40): 2e-4
+    in float32, 3e-2 in bfloat16."""
+    rng = np.random.default_rng(s * 10 + h)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(cuda_device, dt)
+               for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want = kref.attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == dt and got.shape == want.shape
+    tol = 2e-4 if dtype == "float32" else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_dispatch_on_card(cuda_device, monkeypatch):
+    q = torch.randn(1, 64, 4, 16, device=cuda_device)
+    k = torch.randn(1, 64, 2, 16, device=cuda_device)
+    monkeypatch.delenv("QUIPT_ATTN_IMPL", raising=False)
+    before = fa.launches
+    kops.flash_attention(q, k, k)
+    assert fa.launches == before + 1
+    monkeypatch.setenv("QUIPT_ATTN_IMPL", "ref")
+    kops.flash_attention(q, k, k)
+    assert fa.launches == before + 1
+    with pytest.raises(ValueError):
+        fa.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k[:, :, :1].expand(1, 64, 2, 16), k)

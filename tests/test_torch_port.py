@@ -218,6 +218,7 @@ def test_default_device_raises_without_cuda(monkeypatch):
 # knobs
 # --------------------------------------------------------------------------- #
 _RESOLVERS = {
+    "QUIPT_ATTN_IMPL": lambda: kops.resolve_attn_impl(),
     "QUIPT_BLOOM_IMPL": lambda: kops.resolve_bloom_impl(),
     "QUIPT_DIST_IMPL": lambda: kops.resolve_dist_impl(),
     "QUIPT_KNN_IMPL": lambda: kops.resolve_knn_impl(),
@@ -236,12 +237,14 @@ def test_knobs_reject_unknown_values(monkeypatch, knob):
 
 
 def test_impl_knob_defaults_follow_the_device(monkeypatch):
-    for knob in ("QUIPT_BLOOM_IMPL", "QUIPT_DIST_IMPL"):
+    for knob in ("QUIPT_BLOOM_IMPL", "QUIPT_DIST_IMPL", "QUIPT_ATTN_IMPL"):
         monkeypatch.delenv(knob, raising=False)
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     assert kops.resolve_bloom_impl(None, cpu) == "ref"
     assert kops.resolve_bloom_impl(None, cuda) == "cuda"
     assert kops.resolve_dist_impl(None, cuda) == "cuda"
+    assert kops.resolve_attn_impl(None, cpu) == "ref"
+    assert kops.resolve_attn_impl(None, cuda) == "cuda"
     monkeypatch.setenv("QUIPT_DIST_IMPL", "numpy")
     assert kops.resolve_dist_impl(None, cuda) == "numpy"
     assert kops.resolve_dist_impl("ref", cuda) == "ref"
