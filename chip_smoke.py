@@ -30,6 +30,13 @@ bfloat16 (as configured) the two paths' prefills must agree to a cosine
 of 0.99 per row, and ``serve_batch`` serves 4 prompts of 128 tokens with
 32 greedy tokens each.
 
+Slice 5 redesigns two kernels in place: the segment reduction (place
+step spread over chunks of rows, a thread, warp or block per segment by
+size) and, for bf16 at head widths 64/128/256, a tensor-core attention
+kernel (``wgmma``, TMA, a producer warpgroup) beside the CUDA-core one,
+which keeps float32.  Both are checked and timed with the rest; the
+bf16 prefill must run the tensor-core kernel in every layer.
+
 Each configuration runs once through the kernels and once through the plain
 versions, whose answers and imputation counts must agree; slice 2's wifi
 answers must also equal slice 1's.  The last phases check the paper's
@@ -53,6 +60,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -76,8 +84,10 @@ PORT_KERNELS = ("bloom_probe_kernel", "masked_distance_kernel",
                 "join_insert_kernel", "join_place_kernel",
                 "join_probe_kernel", "join_emit_kernel",
                 "neighbor_mean_kernel", "neighbor_mode_kernel",
-                "segment_count_kernel", "segment_reduce_kernel",
-                "flash_attention_kernel")
+                "segment_count_kernel", "segment_scan_kernel",
+                "segment_place_kernel", "segment_small_kernel",
+                "segment_medium_kernel", "segment_large_kernel",
+                "flash_attention_kernel", "flash_attention_tc_kernel")
 
 KNN_COST = 2e-3  # simulated seconds per KNN value, as benchmarks/common.py
 WIFI_FULL = dict(n_users=4000, n_wifi=1_000_000, n_occ=4000, n_rooms=60)
@@ -509,6 +519,30 @@ def check_segment(dev, so, kref, kops) -> float:
     return err
 
 
+def profile_calls(label: str, fn, calls: int) -> None:
+    """Device time per call of each kernel ``fn`` launches, from
+    ``torch.profiler`` over ``calls`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    def short(key: str) -> str:
+        m = re.search(r"(\w+[Kk]ernel\w*)", key)
+        return m.group(1) if m else key[:40]
+
+    parts = ", ".join(f"{short(e.key)} {dev_us(e) / calls / 1e3:.4f}"
+                      for e in sorted(rows, key=dev_us, reverse=True))
+    print(f"   {label}, device ms per call by kernel: {parts or 'none'}",
+          flush=True)
+
+
 def time_segment(dev, so, kref, kops, build, vals: torch.Tensor,
                  seg: torch.Tensor, num_segments: int):
     """The main path's largest grouped reduction: every op checked over its
@@ -550,35 +584,36 @@ def time_segment(dev, so, kref, kops, build, vals: torch.Tensor,
         nbytes=16 * n + 8 * num_segments, ops=n)
     shape = f"{n} rows into {num_segments} segments"
     count["shape"] = total["shape"] = shape
-    # the sum's steps: the place step alone (the hash join's place kernel,
-    # one owner block per 8,064 slots), and an int64 max, whose reduce
-    # step is one compare per row
+    # the sum's steps: count, scan and place (the grouping), then the
+    # reduce alone; and an int64 max, whose reduce is one compare per row
     lib = build.library()
-    row_slot = seg.to(torch.int32)
-    sizes = torch.bincount(seg, minlength=num_segments)
-    starts = torch.cumsum(sizes, 0) - sizes
-    grouped = torch.empty(n, dtype=torch.int32, device=dev)
-
-    def place():
-        cursor = starts.clone()
-        build.check(lib.quipt_join_place(
-            row_slot.data_ptr(), n, cursor.data_ptr(), grouped.data_ptr(),
-            num_segments, torch.cuda.current_stream().cuda_stream), "place")
-
+    stream = torch.cuda.current_stream().cuda_stream
+    counts, starts, grouped = so._group(lib, seg, num_segments, stream)
+    sizes = counts
+    ranges, chunks, chunk_rows = so.place_grid(n, num_segments)
+    group_ms = cuda_ms(lambda: so._group(lib, seg, num_segments, stream),
+                       reps=50)
+    reduce_ms = cuda_ms(lambda: so._reduce(lib, vals, "sum", counts, starts,
+                                           grouped, stream), reps=50)
     ivals = vals.to(torch.int64)
-    place_ms = cuda_ms(place, reps=50)
     max_ms = cuda_ms(lambda: so.segment_reduce(ivals, seg, num_segments,
                                                "max"), reps=50)
+    profile_calls("segment_reduce float64 sum", lambda: so.segment_reduce(
+        vals, seg, num_segments, "sum"), calls=20)
     print(f"   segment_reduce steps at {shape} (largest segment "
-          f"{int(sizes.max())} rows): place {place_ms:.4f} ms, int64 max "
-          f"{max_ms:.4f} ms", flush=True)
+          f"{int(sizes.max())} rows; place grid {ranges} ranges x {chunks} "
+          f"chunks of {chunk_rows} rows): count + scan + place "
+          f"{group_ms:.4f} ms, float64 sum reduce {reduce_ms:.4f} ms; int64 "
+          f"max in all {max_ms:.4f} ms", flush=True)
     for what in ("one segment of 1M rows", "1M rows into 500,000 segments"):
         s_np, num, v = segment_case(what, seed=7)
         st = torch.from_numpy(s_np).to(dev)
         vt = torch.from_numpy(v["float64"]).to(dev)
-        ms = cuda_ms(lambda: so.segment_reduce(vt, st, num, "sum"), reps=5)
+        ms = cuda_ms(lambda: so.segment_reduce(vt, st, num, "sum"), reps=20)
         print(f"   segment_reduce float64 sum at {what}: {ms:.4f} ms",
               flush=True)
+        profile_calls(f"segment_reduce float64 sum at {what}",
+                      lambda: so.segment_reduce(vt, st, num, "sum"), calls=5)
     return count, total
 
 
@@ -597,6 +632,10 @@ ATTN_MASKS = ((True, None), (False, None), (True, 24))
 # bfloat16: both accumulate in float32 and round once to bfloat16, so they
 # may differ by one rounding step of the value, at most 2^-7 of it (rtol
 # 8e-3), or under 1e-3 where |value| < 0.125; anything more is a fault.
+# The tensor-core kernel keeps that single rounding: it splits the softmax
+# weights P into two bf16 terms (P_hi + P_lo, ~16 bits) for the P.V
+# products, since rounding P itself to bf16 would add a second rounding
+# that this limit does not allow where few keys are kept.
 ATTN_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (8e-3, 1e-3)}
 MATMUL_NAMES = ("gemm", "cutlass", "xmma", "nvjet", "cublas", "wgmma")
 
@@ -630,10 +669,12 @@ def attention_err(fa, kref, q, k, v, causal, window, what: str) -> float:
 
 
 def check_attention(dev, fa, kref) -> dict:
-    """The kernel against its plain version on the reference tests' grid
-    in float32 and bfloat16, at the slice's call in bfloat16 and float32
-    (64 key tiles, no window) and at a padded, windowed float32 call;
-    returns the largest |difference| by dtype."""
+    """The kernels against their plain version on the reference tests' grid
+    in float32 and bfloat16 (the CUDA-core kernel: head widths 8-32), on
+    the same grid at the tensor-core kernel's head widths 64, 128 and 256
+    in bfloat16, at the slice's call in bfloat16 and float32 (64 key tiles,
+    no window) and at a padded, windowed call in both; returns the largest
+    |difference| by dtype."""
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for shape in ATTN_GRID:
         for causal, window in ATTN_MASKS:
@@ -646,10 +687,24 @@ def check_attention(dev, fa, kref) -> dict:
           f"shapes x 3 masks x f32/bf16): max |diff| f32 "
           f"{err[torch.float32]:.3g}, bf16 {err[torch.bfloat16]:.3g}",
           flush=True)
+    tc_err = 0.0
+    for shape in ATTN_GRID:
+        for d in fa.TENSOR_CORE_HEAD_DIMS:
+            for causal, window in ATTN_MASKS:
+                q, k, v = attention_inputs(dev, *shape[:4], d,
+                                           torch.bfloat16, sum(shape) + d)
+                tc_err = max(tc_err, attention_err(
+                    fa, kref, q, k, v, causal, window,
+                    f"{shape[:4]} D={d} bf16 causal={causal} "
+                    f"window={window}"))
+    err[torch.bfloat16] = max(err[torch.bfloat16], tc_err)
+    print(f"   tensor-core flash_attention == plain on the grid at D 64, 128 "
+          f"and 256 (bf16, 3 masks): max |diff| {tc_err:.3g}", flush=True)
     for shape, dtype, window in (
             ((LM_BATCH, LM_SEQ, 16, 2, 128), torch.bfloat16, None),
             ((LM_BATCH, LM_SEQ, 16, 2, 128), torch.float32, None),
-            ((1, 1000, 16, 2, 128), torch.float32, 256)):
+            ((1, 1000, 16, 2, 128), torch.float32, 256),
+            ((1, 1000, 16, 2, 128), torch.bfloat16, 256)):
         q, k, v = attention_inputs(dev, *shape, dtype, 7)
         e = attention_err(fa, kref, q, k, v, True, window,
                           f"{shape} {dtype} window={window}")
@@ -667,32 +722,84 @@ def kept_pairs(s: int, causal: bool, window) -> int:
     return int((hi - lo + 1).sum())
 
 
-def time_attention(dev, fa, kref):
-    """The slice's call, (2, 4096, 16, 2, 128) bf16 causal: the kernel,
-    its plain version and ``scaled_dot_product_attention`` (timed only),
-    and the bound: 4·B·H·D·(kept pairs) operations at the bf16 tensor-core
-    peak, or q/k/v/o once over the memory."""
+def executed_pairs(s: int, causal: bool, bq: int, bk: int) -> int:
+    """The (query, key) pairs the tensor-core kernel computes: whole
+    bq x bk tiles, those above the diagonal skipped."""
+    n_q = -(-s // bq)
+    tiles = sum(min((min((t + 1) * bq, s) - 1) // bk + 1, -(-s // bk))
+                if causal else -(-s // bk) for t in range(n_q))
+    return tiles * bq * bk
+
+
+def cuda_core_attention(build, q, k, v, causal=True, window=None):
+    """The CUDA-core kernel on bf16 q/k/v, which the wrapper's route sends
+    to the tensor-core kernel: called through the library for its time."""
+    b, s, h, d = q.shape
+    out = torch.empty_like(q)
+    rc = build.library().quipt_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
+        k.shape[2], d, int(q.dtype == torch.bfloat16), int(causal),
+        0 if window is None else int(window), 1.0 / d ** 0.5,
+        torch.cuda.current_stream().cuda_stream)
+    build.check(rc, "quipt_flash_attention")
+    return out
+
+
+def time_attention(dev, fa, kref, build):
+    """The slice's call, (2, 4096, 16, 2, 128) causal: in bf16 the
+    tensor-core kernel (the route), the CUDA-core kernel on the same inputs,
+    the plain version and ``scaled_dot_product_attention`` (timed only); in
+    float32 the CUDA-core kernel (its route) likewise.  The bound:
+    4·B·H·D·(kept pairs) operations at the dtype's peak (bf16 tensor cores,
+    float32 CUDA cores), or q/k/v/o once over the memory."""
     import torch.nn.functional as F
 
     b, s, h, kv, d = LM_BATCH, LM_SEQ, 16, 2, 128
-    q, k, v = attention_inputs(dev, b, s, h, kv, d, torch.bfloat16, 5)
-    err = attention_err(fa, kref, q, k, v, True, None, "the slice's call")
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    t = {
-        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v), reps=20),
-        "plain_ms": cuda_ms(lambda: kref.attention_ref(q, k, v), reps=5),
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), reps=20),
-        "err": err, "shape": f"({b}, {s}, {h}, {kv}, {d}) bf16 causal",
-    }
     ops = 4 * b * h * d * kept_pairs(s, True, None)
-    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-    t["bound_ms"], t["bound_by"] = bound_ms(nbytes, ops,
-                                            BF16_TENSOR_OPS_PER_S)
-    print(f"   flash_attention at {t['shape']}: {ops / 1e9:.1f} GFLOP, "
-          f"{nbytes / 1e6:.1f} MB; {ops / t['ms'] / 1e9:.1f} TFLOP/s",
-          flush=True)
-    return t
+    out = {}
+    for dtype, peak in ((torch.bfloat16, BF16_TENSOR_OPS_PER_S),
+                        (torch.float32, FP32_OPS_PER_S)):
+        q, k, v = attention_inputs(dev, b, s, h, kv, d, dtype, 5)
+        err = attention_err(fa, kref, q, k, v, True, None,
+                            f"the slice's call in {dtype}")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        t = {
+            "ms": cuda_ms(lambda: fa.flash_attention(q, k, v), reps=20),
+            "plain_ms": cuda_ms(lambda: kref.attention_ref(q, k, v), reps=5),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), reps=20),
+            "err": err, "shape": f"({b}, {s}, {h}, {kv}, {d}) {name} causal",
+            "route": fa.route(dtype, d),
+        }
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, ops, peak)
+        print(f"   flash_attention at {t['shape']} ({t['route']} kernel): "
+              f"{ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; "
+              f"{ops / t['ms'] / 1e9:.1f} TFLOP/s", flush=True)
+        if dtype == torch.bfloat16:
+            # the tensor-core kernel's executed work: 128 x 128 tiles, P.V
+            # twice (P_hi and P_lo)
+            executed = 4 * b * h * d * 1.5 * executed_pairs(s, True, 128, 128)
+            print(f"   tensor-core kernel: {executed / 1e9:.1f} GFLOP "
+                  f"executed, {executed / t['ms'] / 1e9:.1f} TFLOP/s "
+                  f"executed", flush=True)
+            cc = cuda_core_attention(build, q, k, v).float()
+            want = kref.attention_ref(q, k, v).float()
+            rtol, atol = ATTN_TOL[dtype]
+            if bool(((cc - want).abs() > atol + rtol * want.abs()).any()):
+                raise AssertionError("the CUDA-core kernel differs from the "
+                                     "plain version at the bf16 slice call")
+            t["cuda_core_ms"] = cuda_ms(
+                lambda: cuda_core_attention(build, q, k, v), reps=10)
+            print(f"   CUDA-core kernel on the same bf16 call: "
+                  f"{t['cuda_core_ms']:.4f} ms "
+                  f"({ops / t['cuda_core_ms'] / 1e9:.1f} TFLOP/s), max "
+                  f"|diff| {float((cc - want).abs().max()):.3g}", flush=True)
+        out[name] = t
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return out
 
 
 def close_logits(got, want, what: str) -> float:
@@ -727,16 +834,22 @@ def lm_model(lm, dtype: str, seed: int, dev):
 
 
 def prefill_both(lm, fa, model, cfg, batch):
-    """Prefill on the kernel path with the launch counter set to 0 just
+    """Prefill on the kernel path with the launch counters set to 0 just
     before and read just after, then on the plain path, which must launch
-    nothing; returns (kernel logits, plain logits, launches)."""
+    nothing; returns (kernel logits, plain logits, launches).  Every layer
+    launches the kernel of the dtype's route."""
     fa.launches = 0
+    fa.route_launches = dict.fromkeys(fa.ROUTES, 0)
     kern = lm.prefill(model, cfg, batch)
     torch.cuda.synchronize()
     launches = fa.launches
-    if launches != cfg.n_layers:
-        raise AssertionError(f"prefill launched the kernel {launches} times, "
-                             f"want one per layer ({cfg.n_layers})")
+    which = fa.route(getattr(torch, cfg.dtype), cfg.resolved_head_dim)
+    if launches != cfg.n_layers or fa.route_launches[which] != launches:
+        raise AssertionError(f"prefill launched the kernels "
+                             f"{fa.route_launches} times, want one "
+                             f"{which} launch per layer ({cfg.n_layers})")
+    print(f"   {cfg.dtype} prefill: {fa.route_launches[which]} launches of "
+          f"the {which} kernel", flush=True)
     with knobs(QUIPT_ATTN_IMPL="ref"):
         plain = lm.prefill(model, cfg, batch)
     torch.cuda.synchronize()
@@ -746,6 +859,9 @@ def prefill_both(lm, fa, model, cfg, batch):
 
 
 def lm_f32_check(dev, lm, fa) -> int:
+    """qwen2.5-3b in float32: the kernel path's prefill against the plain
+    path's and decode against prefill; returns the (CUDA-core) kernel's
+    launches in one prefill."""
     cfg, model, batch = lm_model(lm, "float32", 0, dev)
     with torch.inference_mode():
         kern, plain, launches = prefill_both(lm, fa, model, cfg, batch)
@@ -794,8 +910,10 @@ def profile_lm(label: str, fn, top: int) -> None:
     split = {"attention kernel": 0.0, "matmuls": 0.0, "rest": 0.0}
     for e in rows:
         name = e.key.lower()
-        if "flash_attention_kernel" in name:
-            split["attention kernel"] += dev_us(e) / 1e6
+        # the port's own kernels first: a name of theirs may hold "wgmma"
+        if any(k in name for k in PORT_KERNELS):
+            key = "attention kernel" if "flash_attention" in name else "rest"
+            split[key] += dev_us(e) / 1e6
         elif any(m in name for m in MATMUL_NAMES):
             split["matmuls"] += dev_us(e) / 1e6
         else:
@@ -1338,10 +1456,11 @@ def main() -> int:
     with phase("flash_attention against its plain version"):
         attn_check_err = check_attention(dev, fa, kref)
     with phase("flash_attention times at the slice's call"):
-        attn_t = time_attention(dev, fa, kref)
+        attn_times = time_attention(dev, fa, kref, build)
+        attn_t, attn_f32_t = attn_times["bf16"], attn_times["f32"]
     with phase(f"slice 4: {LM_ARCH} float32 at full width: kernel path == "
                f"plain path, decode == prefill"):
-        lm_f32_check(dev, lm, fa)
+        lm_f32_launches = lm_f32_check(dev, lm, fa)
     with phase(f"slice 4: {LM_ARCH} bfloat16 as configured: prefill on both "
                f"paths, profile, serve_batch"):
         lm_launches = lm_bf16_run(dev, lm, fa)
@@ -1433,7 +1552,8 @@ def main() -> int:
                         ("neighbor_mean", mean_t), ("neighbor_mode", mode_t),
                         ("segment_reduce count", seg_count_t),
                         ("segment_reduce float64 sum", seg_sum_t),
-                        ("flash_attention", attn_t)):
+                        ("flash_attention", attn_t),
+                        ("flash_attention_f32", attn_f32_t)):
             lib = t.get("library_ms")
             print(f"   {name} at {t['shape']}: median kernel {t['ms']:.4f} "
                   f"ms, plain {t['plain_ms']:.4f} ms, bound "
@@ -1443,8 +1563,9 @@ def main() -> int:
     print(f"   slice 1 launches: wifi {s1_wifi}, cdc {s1_cdc}")
     print(f"   slice 2 launches: wifi {s2_wifi}, cdc {s2_cdc}")
     print(f"   slice 3 launches: wifi {s3_wifi}, cdc {s3_cdc}")
-    print(f"   slice 4 launches: flash_attention {lm_launches} per "
-          f"{LM_ARCH} prefill")
+    print(f"   slice 4 launches: flash_attention (tensor core) {lm_launches} "
+          f"per bf16 {LM_ARCH} prefill, flash_attention_f32 (CUDA core) "
+          f"{lm_f32_launches} per f32 prefill")
     print(f"total {time.perf_counter() - t_start:.1f}s", flush=True)
 
     csrc = "src/repro_torch/csrc/"
@@ -1480,10 +1601,16 @@ def main() -> int:
                      main_launches["segment_reduce"], seg_sum_t,
                      max(seg_check_err, seg_sum_t["err"]),
                      seg_sum_t["library_ms"]),
-        kernel_entry("flash_attention", csrc + "flash_attention.cu",
+        kernel_entry("flash_attention", csrc + "flash_attention_tc.cu",
                      "src/repro/kernels/flash_attention.py:96", lm_launches,
-                     attn_t, max(max(attn_check_err.values()), attn_t["err"]),
+                     attn_t, max(attn_check_err[torch.bfloat16],
+                                 attn_t["err"]),
                      attn_t["library_ms"]),
+        kernel_entry("flash_attention_f32", csrc + "flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:96",
+                     lm_f32_launches, attn_f32_t,
+                     max(attn_check_err[torch.float32], attn_f32_t["err"]),
+                     attn_f32_t["library_ms"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -27,13 +27,17 @@
 // = 0 wipes that, as in the reference (-inf would give inf - inf = NaN).
 // The output is acc / max(l, 1e-30), written in q's dtype.
 //
-// What bounds it on an H100: operations.  At the main path's call
-// (B 2, S 4096, H 16, KV 2, D 128, bf16, causal) the two products do
-// 4 * B * H * D * 8.39M kept pairs = 137 GFLOP against 75 MB of q/k/v/o,
-// so at the tensor cores' bf16 peak the bound is ~0.14 ms.  This kernel
-// uses CUDA cores and float32 and is limited by its shared-memory reads
-// (two loads per two FMAs in the score loop); wgmma, TMA and warp
-// specialisation are the later redesign.  The products use explicit
+// Its route (kernels/flash_attention.py): float32, and bf16 at head widths
+// other than 64, 128 and 256; bf16 at those widths runs the tensor-core
+// kernel (flash_attention_tc.cu).
+//
+// What bounds it on an H100: operations.  At the slice's call in float32
+// (B 2, S 4096, H 16, KV 2, D 128, causal) the two products do
+// 4 * B * H * D * 8.39M kept pairs = 137 GFLOP, ~2.05 ms at the CUDA
+// cores' 67 TFLOP/s.  This kernel uses CUDA cores and float32 and is
+// limited by its shared-memory reads (two loads per two FMAs in the score
+// loop).  Float32 takes no TF32 or bf16 products, which would leave the
+// 2e-4 it is held to.  The products use explicit
 // fmaf (the library compiles with -fmad=false) and exp uses expf, not
 // __expf, so float32 inputs stay within 2e-4 of the plain version.
 

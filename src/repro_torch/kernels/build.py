@@ -55,14 +55,22 @@ _SIGNATURES = {
                             _c_void_p],
     "quipt_neighbor_mode": [_c_void_p, _c_int64, _c_int, _c_void_p,
                             _c_void_p],
-    "quipt_segment_count": [_c_void_p, _c_int64, _c_int64, _c_void_p,
-                            _c_void_p, _c_void_p],
+    "quipt_segment_count": [_c_void_p, _c_int64, _c_int64, _c_int64,
+                            _c_void_p, _c_void_p, _c_void_p, _c_void_p],
+    "quipt_segment_scan": [_c_void_p, _c_int64, _c_int64, _c_void_p,
+                           _c_void_p],
+    "quipt_segment_place": [_c_void_p, _c_int64, _c_int64, _c_int64,
+                            _c_void_p, _c_void_p, _c_void_p, _c_int64,
+                            _c_int64, _c_void_p],
     "quipt_segment_reduce": [_c_void_p, _c_int, _c_int, _c_void_p, _c_void_p,
                              _c_void_p, _c_int64, _c_int64, _c_int64,
-                             _c_void_p, _c_void_p],
+                             _c_void_p, _c_void_p, _c_void_p, _c_void_p],
     "quipt_flash_attention": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
                               _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
                               _c_int, _c_int, _c_float, _c_void_p],
+    "quipt_flash_attention_tc": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                                 _c_int, _c_int, _c_int, _c_int, _c_int,
+                                 _c_int, _c_int, _c_float, _c_void_p],
 }
 
 _lock = threading.Lock()

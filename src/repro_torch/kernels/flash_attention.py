@@ -1,12 +1,19 @@
-"""Flash attention (GQA, causal / sliding window): the wrapper of the CUDA
-kernel ``csrc/flash_attention.cu``.
+"""Flash attention (GQA, causal / sliding window): the wrapper of two CUDA
+kernels, picked by ``route`` on (dtype, head width):
 
-Replaces the reference package's Pallas kernel ``flash_attention_pallas``
-(``repro/kernels/flash_attention.py``).  A CUDA tensor launches the kernel
-on the current stream; a CPU tensor takes the plain torch version
-(``ref.attention_ref``), since the kernel exists only on the card.  The two
-agree to 2e-4 in float32 and 3e-2 in bfloat16 (the kernel accumulates in
-float32 in another order and never materialises the scores).
+* ``"tensor_core"`` -- bfloat16 with D in {64, 128, 256}:
+  ``csrc/flash_attention_tc.cu`` (``wgmma`` products, TMA loads, a producer
+  warpgroup; P split into two bf16 terms so the only bf16 rounding that
+  reaches the output is its own);
+* ``"cuda_core"`` -- float32 (any D up to 256; float32 must stay within
+  2e-4 of the plain version, so it takes no TF32 or bf16 products) and
+  bfloat16 at the other head widths: ``csrc/flash_attention.cu``.
+
+Both replace the reference package's Pallas kernel ``flash_attention_pallas``
+(``repro/kernels/flash_attention.py``).  A CUDA tensor launches the routed
+kernel on the current stream, and a failed launch raises; a CPU tensor takes
+the plain torch version (``ref.attention_ref``), since the kernels exist
+only on the card.
 """
 
 from __future__ import annotations
@@ -18,10 +25,17 @@ import torch
 
 from repro_torch.kernels import ref as _ref
 
-__all__ = ["MAX_HEAD_DIM", "flash_attention", "launches"]
+__all__ = ["MAX_HEAD_DIM", "ROUTES", "TENSOR_CORE_HEAD_DIMS",
+           "flash_attention", "launches", "route", "route_launches"]
 
-#: kernel launches since the counter was last set to 0
+#: kernel launches since the counter was last set to 0 (both kernels)
 launches = 0
+#: the same, per route
+route_launches = {"tensor_core": 0, "cuda_core": 0}
+
+ROUTES = ("tensor_core", "cuda_core")
+#: head widths the tensor-core kernel takes (its tiles are 64 columns wide)
+TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
 
 #: the largest head width the kernel takes (its shared-memory tiles)
 MAX_HEAD_DIM = 256
@@ -62,6 +76,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{q.device}")
 
 
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA call runs: ``"tensor_core"`` for bfloat16 at a head
+    width of 64, 128 or 256, else ``"cuda_core"``."""
+    if dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS:
+        return "tensor_core"
+    return "cuda_core"
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
@@ -85,13 +107,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     from repro_torch.kernels import build
 
+    which = route(q.dtype, d)
     lib = build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.quipt_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
-            k.shape[2], d, int(q.dtype == torch.bfloat16), int(causal),
-            0 if window is None else int(window), float(scale), stream)
-    build.check(rc, "quipt_flash_attention")
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+        flags = (int(causal), 0 if window is None else int(window),
+                 float(scale), stream)
+        if which == "tensor_core":
+            rc = lib.quipt_flash_attention_tc(*ptrs, b, s, h, k.shape[2], d,
+                                              *flags)
+        else:
+            rc = lib.quipt_flash_attention(*ptrs, b, s, h, k.shape[2], d,
+                                           int(q.dtype == torch.bfloat16),
+                                           *flags)
+    build.check(rc, f"flash_attention ({which})")
     launches += 1
+    route_launches[which] += 1
     return out

@@ -247,6 +247,58 @@ def test_segment_reduce_kernel_bitwise_equals_plain_and_numpy(
         assert got.cpu().numpy().tobytes() == oracle.tobytes()
 
 
+# segment lengths at the kernel's size classes (one thread up to 128 rows,
+# a warp up to 4,096, a block beyond) and numpy's 8,192-value blocks
+_CLASS_LENGTHS = [127, 128, 129, 4095, 4096, 4097, 8191, 8192, 8193, 16_385,
+                  300_001]
+
+
+@pytest.mark.parametrize("what", ["boundaries", "one huge, many tiny",
+                                  "one segment of 1M rows"])
+@pytest.mark.parametrize("op", ["count", "sum", "min", "max"])
+def test_segment_reduce_kernel_size_classes(cuda_device, what, op):
+    """Bitwise == plain == numpy member at the size-class boundaries, on a
+    mix of one huge and many tiny segments and on one segment of 1M rows,
+    the rows of every segment scattered over the whole input."""
+    rng = np.random.default_rng(len(what))
+    if what == "boundaries":
+        lengths = _CLASS_LENGTHS
+    elif what == "one huge, many tiny":
+        lengths = [500_000] + list(rng.integers(1, 9, 20_000))
+    else:
+        lengths = [1_000_000]
+    seg = np.repeat(np.arange(len(lengths)), lengths).astype(np.int64)
+    rng.shuffle(seg)
+    seg[rng.random(len(seg)) < 0.01] = -1
+    fvals = rng.normal(size=len(seg)) * 10.0 ** rng.integers(-12, 12,
+                                                            len(seg))
+    ivals = rng.integers(-(2**62), 2**62, len(seg), dtype=np.int64)
+    st = torch.from_numpy(seg).to(cuda_device)
+    for vals in (fvals, ivals):
+        vt = torch.from_numpy(vals).to(cuda_device)
+        got = so.segment_reduce(vt, st, len(lengths), op).cpu().numpy()
+        want = kref.segment_reduce_ref(vt, st, len(lengths), op)
+        assert got.tobytes() == want.cpu().numpy().tobytes()
+        oracle = kops.segment_reduce(None if op == "count" else vals, seg,
+                                     len(lengths), op, impl="numpy")
+        assert got.tobytes() == oracle.tobytes()
+
+
+def test_segment_reduce_signed_zeros_keep_the_first_row(cuda_device):
+    """MIN/MAX over -0.0 and 0.0 in a warp- and a block-sized segment keep
+    the value of the first row, as a scan in row order does."""
+    for n in (1000, 10_000):
+        for first in (-0.0, 0.0):
+            vals = np.full(n, -first)  # the other zero after the first row
+            vals[0] = first
+            seg = np.zeros(n, dtype=np.int64)
+            vt = torch.from_numpy(vals).to(cuda_device)
+            st = torch.from_numpy(seg).to(cuda_device)
+            for op in ("min", "max"):
+                got = so.segment_reduce(vt, st, 1, op).cpu().numpy()
+                assert np.signbit(got[0]) == np.signbit(first), (n, op)
+
+
 @pytest.mark.parametrize("op", ["sum", "min", "max"])
 def test_segment_reduce_kernel_nan(cuda_device, op):
     vals = np.array([1.0, np.nan, 2.0, -np.inf, 5.0, np.nan, 3.0, 0.5])
@@ -350,6 +402,52 @@ def test_flash_attention_kernel_equals_plain(cuda_device, b, s, h, kv, d,
     assert got.dtype == dt and got.shape == want.shape
     tol = 2e-4 if dtype == "float32" else 3e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+_TC_SHAPES = [(b, s, h, kv, d) for d in (64, 128, 256)
+              for s in (100, 1000, 4096)
+              for (b, h, kv) in ((1, 4, 4), (2, 4, 2), (1, 8, 1))]
+_TC_MASKS = [(True, None), (False, None), (True, 256)]
+# chip_smoke.py's bf16 limits: one rounding step of the output
+_BF16_RTOL, _BF16_ATOL = 8e-3, 1e-3
+
+
+@pytest.mark.parametrize("b,s,h,kv,d", _TC_SHAPES)
+@pytest.mark.parametrize("causal,window", _TC_MASKS)
+def test_tensor_core_attention_equals_plain(cuda_device, b, s, h, kv, d,
+                                            causal, window):
+    """bf16 at D 64/128/256, S 100/1000/4096, GQA rep 1, 2 and 8, causal,
+    non-causal and window 256, held to one bf16 rounding of the output."""
+    assert fa.route(torch.bfloat16, d) == "tensor_core"
+    rng = np.random.default_rng(s + d + h)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(cuda_device, torch.bfloat16)
+               for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
+    before = fa.route_launches["tensor_core"]
+    got = fa.flash_attention(q, k, v, causal=causal, window=window).float()
+    torch.cuda.synchronize()
+    assert fa.route_launches["tensor_core"] == before + 1
+    want = kref.attention_ref(q, k, v, causal=causal, window=window).float()
+    assert torch.isfinite(got).all()
+    bad = (got - want).abs() > _BF16_ATOL + _BF16_RTOL * want.abs()
+    assert not bool(bad.any()), float((got - want).abs().max())
+
+
+def test_attention_routes_on_card(cuda_device):
+    """bf16 at D = 128 launches the tensor-core kernel; float32 (and bf16
+    at a width it does not take) the CUDA-core one."""
+    for dtype, d, which in ((torch.bfloat16, 128, "tensor_core"),
+                            (torch.float32, 128, "cuda_core"),
+                            (torch.bfloat16, 40, "cuda_core")):
+        q = torch.randn(1, 64, 4, d, device=cuda_device).to(dtype)
+        k = torch.randn(1, 64, 2, d, device=cuda_device).to(dtype)
+        before = dict(fa.route_launches)
+        fa.flash_attention(q, k, k)
+        torch.cuda.synchronize()
+        after = fa.route_launches
+        assert after[which] == before[which] + 1
+        other = [r for r in fa.ROUTES if r != which][0]
+        assert after[other] == before[other]
 
 
 def test_flash_attention_dispatch_on_card(cuda_device, monkeypatch):

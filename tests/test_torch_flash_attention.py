@@ -223,3 +223,82 @@ def test_softcap_and_dense_init():
     assert w.dtype == torch.bfloat16 and w.shape == (4096, 8)
     # normal x 1/sqrt(fan_in): the sample's spread is near 1/64
     assert abs(float(w.float().std()) * 64 - 1.0) < 0.05
+
+
+# --------------------------------------------------------------------------- #
+# the kernels' route, and the tensor-core kernel's rounding of P
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
+    (torch.bfloat16, 256, "tensor_core"), (torch.bfloat16, 32, "cuda_core"),
+    (torch.bfloat16, 40, "cuda_core"), (torch.bfloat16, 192, "cuda_core"),
+    (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core"),
+    (torch.float32, 256, "cuda_core"),
+])
+def test_kernel_route(dtype, d, want):
+    """bf16 at D 64/128/256 goes to the tensor-core kernel; float32 (held
+    to 2e-4, so no bf16 or TF32 products) and other widths to the CUDA-core
+    one.  A CPU tensor launches neither."""
+    assert fa.route(dtype, d) == want
+    assert want in fa.ROUTES
+    q = torch.zeros(1, 8, 2, d, dtype=dtype)
+    k = torch.zeros(1, 8, 1, d, dtype=dtype)
+    before = (fa.launches, dict(fa.route_launches))
+    fa.flash_attention(q, k, k)
+    assert (fa.launches, fa.route_launches) == before
+
+
+# chip_smoke.py's bf16 limits: one rounding step of the output
+_BF16_RTOL, _BF16_ATOL = 8e-3, 1e-3
+
+
+def _tensor_core_emulation(q, k, v, split_p: bool, bk: int = 128):
+    """The tensor-core kernel's arithmetic in plain torch, causal: bf16
+    inputs, f32 scores in base 2 over 128-key tiles, the online softmax, P
+    rounded to bf16 for P.V (as one term, or split into P_hi + P_lo), f32
+    accumulation, the output rounded once to bf16."""
+    b, s, h, d = q.shape
+    rep = h // k.shape[2]
+    scale = (1.0 / d ** 0.5) * 1.4426950408889634
+    qf = q.float().transpose(1, 2)
+    kf = k.float().transpose(1, 2).repeat_interleave(rep, 1)
+    vf = v.float().transpose(1, 2).repeat_interleave(rep, 1)
+    m = torch.full((b, h, s, 1), -1e30)
+    l = torch.zeros(b, h, s, 1)
+    o = torch.zeros(b, h, s, d)
+    qpos = torch.arange(s)[:, None]
+    for k_lo in range(0, s, bk):
+        kpos = torch.arange(k_lo, min(k_lo + bk, s))[None, :]
+        x = (qf @ kf[:, :, k_lo:k_lo + bk].transpose(-1, -2)) * scale
+        x = torch.where(kpos <= qpos, x, torch.tensor(-1e30))
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        m = m_new
+        hi = p.bfloat16().float()
+        pv = hi @ vf[:, :, k_lo:k_lo + bk]
+        if split_p:
+            pv = pv + (p - hi).bfloat16().float() @ vf[:, :, k_lo:k_lo + bk]
+        o = alpha * o + pv
+    return (o / l.clamp_min(1e-30)).transpose(1, 2).bfloat16()
+
+
+def test_split_p_keeps_one_rounding_step():
+    """At (1, 2048, 4, 1, 128) causal, P split into two bf16 terms holds
+    chip_smoke.py's bf16 limits against the plain version; P rounded to a
+    single bf16 term, FlashAttention's usual step, exceeds them at the same
+    seed (in the first rows, where few keys are kept)."""
+    rng = np.random.default_rng(0)
+    b, s, h, kv, d = 1, 2048, 4, 1, 128
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .bfloat16()
+               for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
+    want = kref.attention_ref(q, k, v, causal=True).float()
+    limit = _BF16_ATOL + _BF16_RTOL * want.abs()
+    split = _tensor_core_emulation(q, k, v, split_p=True).float()
+    assert not bool(((split - want).abs() > limit).any())
+    single = _tensor_core_emulation(q, k, v, split_p=False).float()
+    bad = (single - want).abs() > limit
+    assert int(bad.sum()) > 0
+    assert int(bad.nonzero()[:, 1].min()) < 256  # an early row

@@ -224,3 +224,118 @@ def test_long_float_sums_follow_numpys_block_size(impl):
     oracle = np.array([vals[seg == s].sum() for s in range(2)])
     _assert_bitwise(got, oracle)
     _assert_bitwise(got, _reference(vals, seg, 2, "sum"))
+
+
+# --------------------------------------------------------------------------- #
+# the kernel's size classes and place grid
+# --------------------------------------------------------------------------- #
+# segment lengths where the kernel's reduce switches class (one thread up
+# to 128 rows, a warp up to 4,096, a block beyond) and numpy's blocks
+_CLASS_LENGTHS = [127, 128, 129, 4095, 4096, 4097, 8191, 8192, 8193,
+                  16_385]
+
+
+@pytest.mark.parametrize("impl", PORT_IMPLS)
+@pytest.mark.parametrize("dtype", ["int64", "float64"])
+@pytest.mark.parametrize("op", OPS)
+@pytest.mark.parametrize("what", ["class boundaries", "one segment of 300k",
+                                  "one huge, many tiny"])
+def test_members_at_the_kernels_size_classes(impl, dtype, op, what):
+    """The plain version and the numpy member bitwise == the reference's
+    numpy member at the segment lengths where the kernel changes class,
+    on one segment of ~300,000 rows and on one huge segment among many
+    tiny ones, every segment's rows scattered over the input."""
+    rng = np.random.default_rng(len(what))
+    if what == "class boundaries":
+        lengths = _CLASS_LENGTHS
+    elif what == "one segment of 300k":
+        lengths = [300_007]
+    else:
+        lengths = [200_003] + list(rng.integers(1, 9, 3_000))
+    seg = np.repeat(np.arange(len(lengths)), lengths).astype(np.int64)
+    rng.shuffle(seg)
+    seg[rng.random(len(seg)) < 0.01] = -1
+    if dtype == "float64":
+        vals = rng.normal(size=len(seg)) * 10.0 ** rng.integers(
+            -12, 12, len(seg))
+    else:
+        vals = rng.integers(-(2**62), 2**62, len(seg), dtype=np.int64)
+    _assert_bitwise(_port(vals, seg, len(lengths), op, impl),
+                    _reference(vals, seg, len(lengths), op))
+
+
+@pytest.mark.parametrize("n,num_segments", [
+    (0, 4), (1, 1), (5000, 64), (328_358, 3166), (1_433_226, 3155),
+    (1_000_000, 1), (1_000_000, 500_000), (10, 3_000_000),
+    (2**31 - 1, 2**31 - 1),
+])
+def test_place_grid(n, num_segments):
+    """Every row in exactly one chunk of a multiple of 256 rows; ranges of
+    at most 8,064 segments; about 264 blocks when the segments are few;
+    the (chunk, segment) table within 264 x 8,064."""
+    ranges, chunks, chunk_rows = so.place_grid(n, num_segments)
+    assert chunk_rows % 256 == 0 and chunk_rows > 0
+    assert chunks * chunk_rows >= n > (chunks - 1) * chunk_rows or n == 0
+    assert ranges >= 1 and -(-num_segments // ranges) <= 8064
+    assert ranges * 8064 < num_segments + 8064
+    if chunks > 1:
+        assert ranges * chunks <= 264
+        assert chunks * num_segments <= 264 * 8064
+    if num_segments <= 8064 and n >= 264 * 2048:
+        assert chunks >= 250  # the card is filled
+
+
+def _group_tree_sum(a: np.ndarray, k: int) -> np.float64:
+    """The kernel's evaluation of numpy's pairwise sum by a group of 2^k
+    octets: each octet takes the node at depth k along its index's bits
+    (a leaf met higher up goes to the octet whose remaining bits are 0),
+    sums it in numpy's order, then the nodes are combined level by level,
+    inner node = left + right."""
+    def split(n):
+        return n // 2 - (n // 2) % 8
+
+    def tree(x):
+        if len(x) <= 128:  # numpy's leaf, as in kernels/ref.py _leaf_sums
+            return kref._leaf_sums(torch.from_numpy(x), np.array([0]),
+                                   np.array([len(x)])).numpy()[0]
+        n2 = split(len(x))
+        return tree(x[:n2]) + tree(x[n2:])
+
+    vals, inner = [np.float64(0.0)] * (1 << k), [0] * (1 << k)
+    for o in range(1 << k):
+        lo, m, owner = 0, len(a), True
+        for d in range(k):
+            if m <= 128:
+                owner = o & ((1 << (k - d)) - 1) == 0
+                break
+            inner[o] |= 1 << d
+            n2 = split(m)
+            if (o >> (k - 1 - d)) & 1:
+                lo, m = lo + n2, m - n2
+            else:
+                m = n2
+        if owner:
+            vals[o] = tree(a[lo:lo + m])
+    for j in range(k):
+        for o in range(0, 1 << k, 2 << j):
+            if (inner[o] >> (k - 1 - j)) & 1:
+                vals[o] = vals[o] + vals[o + (1 << j)]
+    return np.float64(0.0) + vals[0]
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 127, 128, 129, 300, 2463, 4096,
+                               4097, 8192, 30_011])
+def test_kernel_tree_order_equals_numpy_pairwise(n):
+    """The warp's (2^2 octets) and the block's (2^6 octets) cut of the
+    pairwise tree give numpy's bits: against the plain version's tree for
+    one whole block of n values, and against numpy's own sum where n fits
+    one of the installed numpy's blocks."""
+    rng = np.random.default_rng(n)
+    a = rng.normal(size=n) * 10.0 ** rng.integers(-12, 12, n)
+    whole = kref._pairwise_segment_sums(torch.from_numpy(a), np.array([n]),
+                                        0).numpy()[0]
+    for k in (0, 2, 6):
+        assert _group_tree_sum(a, k).tobytes() == whole.tobytes(), k
+    block = kref.numpy_sum_block()
+    if block == 0 or n <= block:
+        assert whole.tobytes() == np.float64(a.sum()).tobytes()
