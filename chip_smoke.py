@@ -37,6 +37,14 @@ kernel (``wgmma``, TMA, a producer warpgroup) beside the CUDA-core one,
 which keeps float32.  Both are checked and timed with the rest; the
 bf16 prefill must run the tensor-core kernel in every layer.
 
+Slice 6 redesigns two more: ``ops.masked_knn`` on the card runs a fused
+kernel (the distances and each row's k smallest, the (nq, nr) matrix never
+written) for k <= 32, and the distance kernel plus ``smallest_k`` above;
+the hash-join build partitions its rows by owner before the place step.
+The fused kernel must equal ``smallest_k`` of the plain distances exactly,
+at ragged shapes, tie rows, k of 1 to 33 and nr, and the main path's call;
+cdc also runs slice 1 with ``KnnImputer(k=33)``, the unfused route.
+
 Each configuration runs once through the kernels and once through the plain
 versions, whose answers and imputation counts must agree; slice 2's wifi
 answers must also equal slice 1's.  The last phases check the paper's
@@ -81,6 +89,7 @@ BF16_TENSOR_OPS_PER_S = 989e12  # dense, tensor cores
 
 # the device functions of src/repro_torch/csrc, as the profiler names them
 PORT_KERNELS = ("bloom_probe_kernel", "masked_distance_kernel",
+                "masked_knn_select_kernel", "masked_knn_merge_kernel",
                 "join_insert_kernel", "join_place_kernel",
                 "join_probe_kernel", "join_emit_kernel",
                 "neighbor_mean_kernel", "neighbor_mode_kernel",
@@ -104,6 +113,11 @@ PLAIN2 = dict(join_impl="ref", agg_impl="ref", impl="ref", bloom_impl="ref")
 # probe is then off the path)
 SLICE3 = dict(SLICE2, exec_impl="compiled", segment_impl="cuda")
 PLAIN3 = dict(PLAIN2, exec_impl="compiled", segment_impl="ref")
+# the KNN imputer's k: 5 on every path but one, whose k = 33 takes the
+# unfused route (the distance kernel, then smallest_k)
+KNN_K = 5
+UNFUSED1 = dict(SLICE1, k=33)
+UNFUSED_PLAIN1 = dict(PLAIN1, k=33)
 
 
 @contextlib.contextmanager
@@ -252,7 +266,80 @@ def check_distance(dev, kd, kref, kops):
         if idx[0].tolist() != want:
             raise AssertionError(f"top-k tie rule: {row} gave "
                                  f"{idx[0].tolist()}, want {want}")
-    print("   masked_knn ties go to the lowest index", flush=True)
+    print("   smallest_k ties go to the lowest index", flush=True)
+
+
+def compare_knn(kd, kref, q, qm, r, rm, k: int, what: str) -> float:
+    """The fused kernels (or, for k > 32, the unfused route) against
+    ``smallest_k`` of the plain distances: ``torch.equal`` on dists and
+    idx; returns the largest |difference| of the finite dists (0)."""
+    got = kd.masked_knn(q, qm, r, rm, k)
+    want = kref.masked_knn_ref(q, qm, r, rm, k)
+    if not (torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])):
+        raise AssertionError(f"masked_knn differs from its plain version at "
+                             f"{what} ({tuple(q.shape)} x {tuple(r.shape)}, "
+                             f"k={k})")
+    fin = torch.isfinite(want[0])
+    return float((got[0][fin] - want[0][fin]).abs().max()) \
+        if fin.any() else 0.0
+
+
+def check_knn(dev, kd, kref, main_shapes) -> float:
+    """``masked_knn`` == ``smallest_k(masked_distance_ref(...), k)`` exactly
+    at the ragged shapes, on rows built to tie, all-+inf rows and rows
+    with no co-observed feature, k of 1, 5, 32, 33 (the unfused route) and
+    nr, a last column range narrower than k, a 3-row batch against the
+    wifi reference rows and the main path's calls; returns the largest
+    |difference|."""
+    rng = np.random.default_rng(4)
+    err = 0.0
+
+    def t(*arrs):
+        return [torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+                .to(dev) for a in arrs]
+
+    for nq, nr, d in ((1, 1, 1), (3, 5, 7), (64, 64, 32), (130, 200, 96),
+                      (128, 256, 128), (1000, 3000, 9)):
+        mats = t(rng.normal(size=(nq, d)), rng.random((nq, d)) > 0.35,
+                 rng.normal(size=(nr, d)), rng.random((nr, d)) > 0.35)
+        for k in sorted({1, 5, 32, 33, nr}):
+            if k <= nr:
+                err = max(err, compare_knn(kd, kref, *mats, k, "a ragged "
+                                           "shape"))
+    print("   masked_knn == plain at the ragged shapes, k 1/5/32/33/nr",
+          flush=True)
+    one = t([[0.0]], [[1.0]], [[1.0], [1.0], [0.5], [1.0]], np.ones((4, 1)))
+    _, idx = kd.masked_knn(*one, 3)
+    if idx[0].tolist() != [2, 0, 1]:
+        raise AssertionError(f"masked_knn tie rule: got {idx[0].tolist()}, "
+                             f"want [2, 0, 1]")
+    ties = rng.integers(0, 3, (64, 4))
+    tied = t(ties, np.ones((64, 4)), np.tile(ties[:10], (500, 1)),
+             np.ones((5000, 4)))
+    q, qm, r, rm = t(rng.normal(size=(96, 3)), rng.random((96, 3)) > 0.6,
+                     rng.normal(size=(3000, 3)), rng.random((3000, 3)) > 0.6)
+    qm[:8] = 0.0  # all-+inf rows
+    for what, mats in (("rows built to tie", tied),
+                       ("+inf rows and pairs with no co-observed feature",
+                        (q, qm, r, rm)),
+                       ("a last range of 2 columns",
+                        t(rng.normal(size=(64, 4)), np.ones((64, 4)),
+                          rng.normal(size=(130, 4)), np.ones((130, 4))))):
+        for k in (1, 5, 32, 33):
+            err = max(err, compare_knn(kd, kref, *mats, k, what))
+    print("   masked_knn == plain on tie rows (ties to the lowest index), "
+          "+inf rows, no co-observed pairs, a range narrower than k",
+          flush=True)
+    for name, (q, qm, r, rm) in main_shapes.items():
+        for nq in (3, q.shape[0]):
+            err = max(err, compare_knn(
+                kd, kref, q[:nq].contiguous(), qm[:nq].contiguous(), r, rm,
+                KNN_K, f"the {name} main path"))
+        print(f"   masked_knn == plain at the {name} main-path call "
+              f"{tuple(q.shape)} x {tuple(r.shape)} and its first 3 rows, "
+              f"k={KNN_K} ({kd.knn_splits(q.shape[0], r.shape[0])} column "
+              f"ranges)", flush=True)
+    return err
 
 
 def time_distance(kd, kref, q, qm, r, rm):
@@ -264,6 +351,92 @@ def time_distance(kd, kref, q, qm, r, rm):
                        ops=nq * nr * (8 * d + 6))
     return {"ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
             "shape": f"({nq}, {nr}, {d})"}
+
+
+def peak_bytes(fn) -> int:
+    """Device memory one call of ``fn`` allocates above what was in use."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def time_unfused(kd, kops, q, qm, r, rm, k: int = KNN_K) -> dict:
+    """The distance kernel, then ``smallest_k`` on its matrix: the KNN path
+    before the fused kernels, and their route for k > 32.  Its time, its
+    peak device memory and the profiler's split by kernel."""
+    def run():
+        return kops.smallest_k(kd.masked_distance(q, qm, r, rm), k)
+
+    t = {"ms": cuda_ms(run, reps=10), "peak_mb": peak_bytes(run) / 1e6}
+    profile_calls(f"distance kernel + smallest_k at ({q.shape[0]}, "
+                  f"{r.shape[0]}, {q.shape[1]}) k={k}", run, calls=5)
+    print(f"   distance kernel + smallest_k: {t['ms']:.4f} ms, peak "
+          f"{t['peak_mb']:.1f} MB", flush=True)
+    return t
+
+
+def time_knn(kd, kref, kops, q, qm, r, rm, k: int = KNN_K):
+    """The main path's call: the fused kernels against the path they
+    replace (``time_unfused``), ``torch.topk`` on the float matrix (timed
+    only: it promises no order among ties), the plain version, each path's
+    peak device memory, the split between the select and merge kernels,
+    and the finish step's share (the same call with every query mask 0,
+    where no output reaches it).  The bound: nq*nr*(8d + 7) float32
+    operations (four multiplies and adds a feature, the finish step, the
+    compare), or the inputs and outputs once."""
+    nq, d = q.shape
+    nr = r.shape[0]
+    err = compare_knn(kd, kref, q, qm, r, rm, k, "the main path")
+    replaced = time_unfused(kd, kops, q, qm, r, rm, k)
+    dmat = kd.masked_distance(q, qm, r, rm)
+    t = {
+        "ms": cuda_ms(lambda: kd.masked_knn(q, qm, r, rm, k), reps=20),
+        "replaced_ms": replaced["ms"],
+        "library_ms": cuda_ms(lambda: torch.topk(dmat, k, dim=1,
+                                                 largest=False), reps=10),
+        "plain_ms": cuda_ms(lambda: kref.masked_knn_ref(q, qm, r, rm, k),
+                            reps=5),
+        "err": err, "shape": f"({nq}, {nr}, {d}) k={k}",
+    }
+    del dmat
+    zero_qm = torch.zeros_like(qm)
+    t["no_finish_ms"] = cuda_ms(lambda: kd.masked_knn(q, zero_qm, r, rm, k),
+                                reps=20)
+    t["bound_ms"], t["bound_by"] = bound_ms(
+        nbytes=4 * (2 * nq * d + 2 * nr * d) + 12 * nq * k,
+        ops=nq * nr * (8 * d + 7))
+    t["peak_mb"] = {
+        "fused": peak_bytes(lambda: kd.masked_knn(q, qm, r, rm, k)) / 1e6,
+        "replaced": replaced["peak_mb"],
+        "plain": peak_bytes(lambda: kref.masked_knn_ref(q, qm, r, rm,
+                                                        k)) / 1e6,
+    }
+    profile_calls(f"masked_knn at {t['shape']}",
+                  lambda: kd.masked_knn(q, qm, r, rm, k), calls=10)
+    print(f"   masked_knn at {t['shape']}: fused {t['ms']:.4f} ms, replaced "
+          f"path (distance kernel + smallest_k) {t['replaced_ms']:.4f} ms, "
+          f"torch.topk on the matrix {t['library_ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}); with every query mask 0 (no finish step) "
+          f"{t['no_finish_ms']:.4f} ms; peak device MB "
+          + ", ".join(f"{p} {v:.1f}" for p, v in t["peak_mb"].items()),
+          flush=True)
+    return t
+
+
+def main_like_join_keys(seed: int = 6):
+    """Keys shaped like the main path's largest join (1,000,000 build keys,
+    12,000 distinct, with a run of 831 copies of -1; 4,000 probe keys), for
+    ``--kernels``, which runs no query to record them."""
+    rng = np.random.default_rng(seed)
+    build = rng.integers(0, 12_000, 1_000_000)
+    build[rng.choice(len(build), 831, replace=False)] = -1
+    probe = np.concatenate([rng.integers(0, 13_000, 3998), [-1, -1]])
+    return build.astype(np.int64), probe.astype(np.int64)
 
 
 # hash join: the reference tests' cases (tests/test_hash_join.py), the
@@ -354,6 +527,8 @@ def time_join(dev, hj, kref, kops, b: np.ndarray, p: np.ndarray):
     probe_ms = cuda_ms(lambda: hj.hash_join_probe(table, pt), reps=20)
     probe_plain = cuda_ms(
         lambda: kref.hash_join_probe_ref(sorted_keys, order, pt), reps=20)
+    profile_calls(f"hash_join_build at {len(b)} keys",
+                  lambda: hj.hash_join_build(bt), calls=20)
     _, dup = np.unique(b, return_counts=True)
     n, m = len(b), len(p)
     # build: read the keys, write the rows grouped by key and, per distinct
@@ -527,12 +702,15 @@ def profile_calls(label: str, fn, calls: int) -> None:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    for _ in range(3):  # a trace now and then comes back empty: take another
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+        if rows:
+            break
     def short(key: str) -> str:
         m = re.search(r"(\w+[Kk]ernel\w*)", key)
         return m.group(1) if m else key[:40]
@@ -588,10 +766,11 @@ def time_segment(dev, so, kref, kops, build, vals: torch.Tensor,
     # reduce alone; and an int64 max, whose reduce is one compare per row
     lib = build.library()
     stream = torch.cuda.current_stream().cuda_stream
-    counts, starts, grouped = so._group(lib, seg, num_segments, stream)
+    counts, starts, grouped = so.group_rows(lib, seg, num_segments,
+                                           stream)
     sizes = counts
     ranges, chunks, chunk_rows = so.place_grid(n, num_segments)
-    group_ms = cuda_ms(lambda: so._group(lib, seg, num_segments, stream),
+    group_ms = cuda_ms(lambda: so.group_rows(lib, seg, num_segments, stream),
                        reps=50)
     reduce_ms = cuda_ms(lambda: so._reduce(lib, vals, "sum", counts, starts,
                                            grouped, stream), reps=50)
@@ -986,20 +1165,22 @@ def lm_bf16_run(dev, lm, fa) -> int:
 # end to end
 # --------------------------------------------------------------------------- #
 class Launches:
-    """The seven kernels' launch counters, set to 0 and read together."""
+    """The QUIP path's kernels' launch counters, set to 0 and read
+    together."""
 
     def __init__(self, bp, kd, hj, na, so):
         self.mods = (bp, kd, hj, na, so)
 
     def reset(self) -> None:
         bp, kd, hj, na, so = self.mods
-        bp.launches = kd.launches = so.launches = 0
+        bp.launches = kd.launches = kd.knn_launches = so.launches = 0
         hj.build_launches = hj.probe_launches = 0
         na.mean_launches = na.mode_launches = 0
 
     def read(self) -> dict:
         bp, kd, hj, na, so = self.mods
         return {"bloom_probe": bp.launches, "masked_distance": kd.launches,
+                "masked_knn": kd.knn_launches,
                 "hash_join_build": hj.build_launches,
                 "hash_join_probe": hj.probe_launches,
                 "neighbor_mean": na.mean_launches,
@@ -1106,7 +1287,7 @@ def knn_engine(imputers, tables, dev, cfg, cost=KNN_COST):
     return imputers.ImputationEngine(
         {t: r.copy() for t, r in tables.items()},
         default=lambda: imputers.KnnImputer(
-            k=5, cost_per_value=cost, impl=cfg["impl"],
+            k=cfg.get("k", KNN_K), cost_per_value=cost, impl=cfg["impl"],
             agg_impl=cfg["agg_impl"], device=dev))
 
 
@@ -1148,7 +1329,7 @@ def run_workload(tables, queries, dev, cfg, mods, label: str, quiet=False):
 
 def end_to_end(name, tables, queries, dev, mods, launches, kernel_cfg,
                plain_cfg, expect, label, off_path=()):
-    """The kernel path of one configuration, with the seven counters set to
+    """The kernel path of one configuration, with the counters set to
     0 just before it and read just after (every kernel of ``expect``
     launched, none of ``off_path``), then its plain twin, which must launch
     nothing and give the same answers and imputation counts."""
@@ -1366,6 +1547,10 @@ def kernel_entry(name, source, replaces, launches, t, err, library_ms):
 
 
 def main() -> int:
+    kernels_only = sys.argv[1:] == ["--kernels"]
+    if sys.argv[1:] and not kernels_only:
+        print("usage: python3 chip_smoke.py [--kernels]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs a "
               "GPU", file=sys.stderr)
@@ -1430,6 +1615,27 @@ def main() -> int:
         print(f"   wifi {[(t, r.num_rows) for t, r in wifi.items()]}, "
               f"cdc {[(t, r.num_rows) for t, r in cdc.items()]}")
 
+    if kernels_only:
+        # the redesigned kernels' times alone; runs against an older
+        # checkout too (a copy of this script beside its src/), where the
+        # fused KNN kernels are timed only if the port has them
+        with phase("kernel times (--kernels)"):
+            mats = knn_matrices(wifi, "wifi", "wifi.lid", dev, knn_mod)
+            t = time_distance(kd, kref, *mats)
+            print(f"   masked_distance at {t['shape']}: {t['ms']:.4f} ms",
+                  flush=True)
+            if hasattr(kd, "masked_knn"):
+                time_knn(kd, kref, kops, *mats)
+            else:
+                time_unfused(kd, kops, *mats)
+            del mats
+            torch.cuda.empty_cache()
+            t, _ = time_join(dev, hj, kref, kops, *main_like_join_keys())
+            print(f"   hash_join_build at {t['shape']}: {t['ms']:.4f} ms",
+                  flush=True)
+        print(card)
+        return 0
+
     with phase("bloom_probe against its plain version"):
         bloom_check_err = check_bloom(dev, bp, kref, fold64)
     with phase("masked_distance against its plain version"):
@@ -1444,6 +1650,8 @@ def main() -> int:
             print(f"   masked_distance bitwise == plain at the {name} main-"
                   f"path shape {tuple(mats[0].shape)} x "
                   f"{tuple(mats[2].shape)}", flush=True)
+    with phase("masked_knn against its plain version"):
+        knn_check_err = check_knn(dev, kd, kref, main_shapes)
     with phase("hash_join against its plain version"):
         join_check_err = check_join(dev, hj, kref, kops)
     with phase("neighbor_mean / neighbor_mode against their plain versions"):
@@ -1470,13 +1678,15 @@ def main() -> int:
         with phase("end to end: wifi at full scale, slice 1"):
             s1_wifi, wifi1 = end_to_end(
                 "wifi", wifi, wifi_q, dev, mods, launches, SLICE1, PLAIN1,
-                ("bloom_probe", "masked_distance"), "slice 1")
+                ("bloom_probe", "masked_knn"), "slice 1",
+                off_path=("masked_distance",))
         with phase("end to end: wifi at full scale, slice 2 (join and "
                    "aggregation on the card)"):
             s2_wifi, wifi2 = end_to_end(
                 "wifi", wifi, wifi_q, dev, mods, launches, SLICE2, PLAIN2,
-                ("bloom_probe", "masked_distance", "hash_join_build",
-                 "hash_join_probe", "neighbor_mode"), "slice 2")
+                ("bloom_probe", "masked_knn", "hash_join_build",
+                 "hash_join_probe", "neighbor_mode"), "slice 2",
+                off_path=("masked_distance",))
             for i, (a, b) in enumerate(zip(wifi1, wifi2)):
                 if a[0] != b[0]:
                     raise AssertionError(f"wifi q{i}: slice 2's answer "
@@ -1486,27 +1696,33 @@ def main() -> int:
         with phase("end to end: cdc, one NHANES cycle, slice 1"):
             s1_cdc, _ = end_to_end(
                 "cdc", cdc, cdc_q, dev, mods, launches, SLICE1, PLAIN1,
-                ("masked_distance",), "slice 1")
+                ("masked_knn",), "slice 1", off_path=("masked_distance",))
+        with phase("end to end: cdc, one NHANES cycle, slice 1 with "
+                   "KnnImputer(k=33), the unfused route"):
+            s1_cdc_k33, _ = end_to_end(
+                "cdc", cdc, cdc_q, dev, mods, launches, UNFUSED1,
+                UNFUSED_PLAIN1, ("masked_distance",), "slice 1 k=33",
+                off_path=("masked_knn",))
         with phase("end to end: cdc, one NHANES cycle, slice 2"):
             s2_cdc, _ = end_to_end(
                 "cdc", cdc, cdc_q, dev, mods, launches, SLICE2, PLAIN2,
-                ("masked_distance", "hash_join_build", "hash_join_probe",
-                 "neighbor_mean"), "slice 2")
+                ("masked_knn", "hash_join_build", "hash_join_probe",
+                 "neighbor_mean"), "slice 2", off_path=("masked_distance",))
         with phase("end to end: wifi at full scale, slice 3 (compiled "
                    "plans, segment reduce on the card)"):
             s3_wifi, _ = end_to_end(
                 "wifi", wifi, wifi_q, dev, mods, launches, SLICE3, PLAIN3,
-                ("masked_distance", "hash_join_build", "hash_join_probe",
+                ("masked_knn", "hash_join_build", "hash_join_probe",
                  "neighbor_mode", "segment_reduce"), "slice 3",
-                off_path=("bloom_probe",))
+                off_path=("bloom_probe", "masked_distance"))
         with phase("end to end: cdc, one NHANES cycle, slice 3"):
             s3_cdc, _ = end_to_end(
                 "cdc", cdc, cdc_q, dev, mods, launches, SLICE3, PLAIN3,
-                ("masked_distance", "hash_join_build", "hash_join_probe",
+                ("masked_knn", "hash_join_build", "hash_join_probe",
                  "neighbor_mean", "segment_reduce"), "slice 3",
-                off_path=("bloom_probe",))
+                off_path=("bloom_probe", "masked_distance"))
     # every path was read with its counters set to 0 just before it
-    paths = (s1_wifi, s1_cdc, s2_wifi, s2_cdc, s3_wifi, s3_cdc)
+    paths = (s1_wifi, s1_cdc, s1_cdc_k33, s2_wifi, s2_cdc, s3_wifi, s3_cdc)
     main_launches = {k: sum(p[k] for p in paths) for k in s2_wifi}
     for k, v in main_launches.items():
         if v <= 0:
@@ -1539,6 +1755,7 @@ def main() -> int:
               f"{max(s[1] for s in sizes)}", flush=True)
         bloom_t = time_bloom(dev, bp, kref, fold64, n, num_hashes, log2m)
         dist_t = time_distance(kd, kref, *main_shapes["wifi"])
+        knn_t = time_knn(kd, kref, kops, *main_shapes["wifi"])
         build_t, probe_t = time_join(dev, hj, kref, kops, *rec["join_keys"])
         mean_t, mode_t = time_neighbor(na, kref, rec["mean"], rec["mode"])
         calls = rec["segment"]
@@ -1547,6 +1764,7 @@ def main() -> int:
         seg_count_t, seg_sum_t = time_segment(dev, so, kref, kops, build,
                                               *rec["segment_args"])
         for name, t in (("bloom_probe", bloom_t), ("masked_distance", dist_t),
+                        ("masked_knn", knn_t),
                         ("hash_join_build", build_t),
                         ("hash_join_probe", probe_t),
                         ("neighbor_mean", mean_t), ("neighbor_mode", mode_t),
@@ -1560,7 +1778,8 @@ def main() -> int:
                   f"{t['bound_ms']:.5f} ms ({t['bound_by']})"
                   + (f", library {lib:.4f} ms" if lib is not None else ""),
                   flush=True)
-    print(f"   slice 1 launches: wifi {s1_wifi}, cdc {s1_cdc}")
+    print(f"   slice 1 launches: wifi {s1_wifi}, cdc {s1_cdc}, cdc with k=33 "
+          f"{s1_cdc_k33}")
     print(f"   slice 2 launches: wifi {s2_wifi}, cdc {s2_cdc}")
     print(f"   slice 3 launches: wifi {s3_wifi}, cdc {s3_cdc}")
     print(f"   slice 4 launches: flash_attention (tensor core) {lm_launches} "
@@ -1578,6 +1797,11 @@ def main() -> int:
                      "src/repro/kernels/knn_distance.py:87",
                      main_launches["masked_distance"], dist_t, dist_err,
                      None),
+        kernel_entry("masked_knn", csrc + "knn_distance.cu",
+                     "src/repro/kernels/knn_distance.py:87 + "
+                     "src/repro/kernels/ops.py:287",
+                     main_launches["masked_knn"], knn_t,
+                     max(knn_check_err, knn_t["err"]), knn_t["library_ms"]),
         kernel_entry("hash_join_build", csrc + "hash_join.cu",
                      "src/repro/kernels/hash_join.py:120",
                      main_launches["hash_join_build"], build_t,

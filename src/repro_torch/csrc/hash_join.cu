@@ -16,21 +16,30 @@
 //             DISTINCT full int64 keys (no folding, so no fold collisions
 //             to verify on the host).  A slot stores 1 + the row of the key
 //             it was claimed for (atomicCAS from 0) and a count of the
-//             key's rows; each row records its slot.
-//          2. (host glue) an exclusive scan of the counts gives each key
-//             its range of the grouped row array.
-//          3. join_place_kernel: each block owns a range of slots and
-//             scans the build rows in row order, placing the rows of its
-//             keys at their key's cursor.  A key has one owner that sees
-//             its rows in ascending order, so every range comes out
-//             ascending -- the order an atomicAdd cursor would lose -- and
-//             a key with many copies costs no more than many keys with one.
-//   probe  4. join_probe_kernel, one thread per probe key: find the key's
+//             key's rows; each row records its slot and its slot's owner,
+//             the range of kOwnerSlots (8,064) slots it falls in.
+//          2. the rows partitioned by owner, stably: the segment kernels of
+//             csrc/segment_reduce.cu with the owners as segments
+//             (kernels/segment_ops.py group_rows: a count per (chunk of
+//             rows, owner) in a shared-memory histogram, a scan down the
+//             chunks, a place per (chunk, owner range)), so each owner's
+//             rows lie together in ascending row order.
+//          3. (host glue) an exclusive scan of the slot counts gives each
+//             key its range of the grouped row array.
+//          4. join_place_kernel, one block per owner: its slots' cursors in
+//             shared memory, it walks only its own rows, in row order, a
+//             tile of 2,048 at a time, sorts the tile by slot with a stable
+//             radix sort and moves each slot's cursor once per run.  A key
+//             has one owner that sees its rows in ascending order, so every
+//             range comes out ascending -- the order an atomicAdd cursor
+//             would lose -- and a key with many copies costs no more than
+//             many keys with one.
+//   probe  5. join_probe_kernel, one thread per probe key: find the key's
 //             slot (expected O(1) steps at load factor <= 1/2), write its
 //             match count.
-//          5. (host glue) an inclusive scan of the counts gives each probe
+//          6. (host glue) an inclusive scan of the counts gives each probe
 //             its range of the output.
-//          6. join_emit_kernel, one thread per output pair: a binary search
+//          7. join_emit_kernel, one thread per output pair: a binary search
 //             of the scanned counts finds the pair's probe, which copies
 //             one build row from its key's range.  A probe with 831
 //             matches is spread over 831 threads.
@@ -38,8 +47,10 @@
 // What bounds it on an H100: memory.  The pairs (16 bytes each) and the
 // keys (8 bytes each) are streamed once; the table's slots and the key
 // gathers are random accesses into arrays that fit the 50 MB L2 at the
-// main path's sizes.  Step 3 reads the slot of every build row once per
-// owning block from L2; that, not HBM, is its cost.
+// main path's sizes.  The first place step had every owner block read the
+// slot of every build row (about 260 blocks x 1M rows from L2 at 1M build
+// rows: 0.54 of the build's 0.64 ms); the partition reads each row a
+// fixed number of times, however many owners there are.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -52,10 +63,9 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kPlacePer = 8;  // build rows a thread reads per tile
 constexpr int kPlaceTile = kThreads * kPlacePer;
 static_assert(kPlacePer * kWarps == 2 * 32, "one scan of 2 counts a lane");
-// a block's cursors fit in shared memory up to this many slots (the
-// kernel's static shared memory then stays within 48 KB)
-constexpr int kSharedSlots = 8064;
-constexpr int64_t kMaxPlaceBlocks = 2 * 132;  // two per SM
+// an owner's cursors fit in shared memory (the place kernel's static
+// shared memory then stays within 48 KB); kernels/hash_join.py OWNER_SLOTS
+constexpr int kOwnerSlots = 8064;
 
 // splitmix64 finaliser of the full key; the top log2cap bits pick the home
 __device__ __forceinline__ uint64_t home_slot(int64_t key, int log2cap) {
@@ -71,7 +81,8 @@ __device__ __forceinline__ uint64_t home_slot(int64_t key, int log2cap) {
 __global__ void __launch_bounds__(kThreads)
 join_insert_kernel(const int64_t* __restrict__ keys, int64_t n, int log2cap,
                    int32_t* slot_row, int32_t* slot_count,
-                   int32_t* __restrict__ row_slot) {
+                   int32_t* __restrict__ row_slot,
+                   int64_t* __restrict__ row_owner) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int64_t key = keys[i];
@@ -89,113 +100,128 @@ join_insert_kernel(const int64_t* __restrict__ keys, int64_t n, int log2cap,
     s = (s + 1) & mask;
   }
   row_slot[i] = static_cast<int32_t>(s);
+  row_owner[i] = static_cast<int64_t>(s / kOwnerSlots);
   atomicAdd(slot_count + s, 1);
 }
 
-__device__ __forceinline__ void load_slots(const int32_t* __restrict__ row_slot,
-                                           int64_t n, int64_t base,
-                                           int32_t (&s)[kPlacePer]) {
+// Exclusive scan, by warp 0, of the 64 per-(u, warp) counts in `count`
+// (u major: the order of a tile's entries); `total` gets their sum.
+// Called between two __syncthreads.
+__device__ __forceinline__ void scan_step_counts(int* count, int* total) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const int c0 = count[2 * lane];
+    const int c1 = count[2 * lane + 1];
+    int incl = c0 + c1;
 #pragma unroll
-  for (int u = 0; u < kPlacePer; ++u) {
-    const int64_t r = base + u * kThreads + threadIdx.x;
-    s[u] = r < n ? row_slot[r] : -1;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += t;
+    }
+    count[2 * lane] = incl - c0 - c1;
+    count[2 * lane + 1] = incl - c1;
+    if (lane == 31) *total = incl;
   }
 }
 
-// Each block owns the slots [lo, lo + span) and places the rows of those
-// keys, in row order, at cursor[slot] (the key's next free position).  Per
-// tile of kPlaceTile build rows: every thread reads kPlacePer slots
-// (coalesced; the next tile's are read while this one is placed), the block
-// compacts the rows it owns into a shared list in row order (ballots and a
-// scan of the per-warp counts), and warp 0 walks the list 32 rows at a
-// time, ranking equal slots with __match_any_sync.  When the block's range
-// fits, its cursors live in shared memory.
+// Block o owns the slots [o * kOwnerSlots, (o + 1) * kOwnerSlots) and
+// places its rows -- perm[owner_start[o] .. + owner_count[o]), ascending --
+// at their slots' cursors, which start at slot_start and live in shared
+// memory.  Per tile of kPlaceTile rows (entry p = u * kThreads + thread,
+// in row order): each thread loads kPlacePer rows and their slots, the
+// tile is sorted by slot with a stable LSD radix sort (one ballot-and-scan
+// split per bit of the slot's offset in the range), after which each run
+// of one slot is contiguous: its head moves the slot's cursor back by its
+// position, every row lands at cursor + position, its tail moves the
+// cursor past the run.
 __global__ void __launch_bounds__(kThreads)
-join_place_kernel(const int32_t* __restrict__ row_slot, int64_t n,
-                  int64_t* cursor, int32_t* __restrict__ grouped,
-                  int64_t cap, int64_t span) {
+join_place_kernel(const int32_t* __restrict__ perm,
+                  const int64_t* __restrict__ owner_start,
+                  const int64_t* __restrict__ owner_count,
+                  const int32_t* __restrict__ row_slot,
+                  const int64_t* __restrict__ slot_start,
+                  int32_t* __restrict__ grouped, int64_t cap) {
   __shared__ int32_t list_row[kPlaceTile];
   __shared__ int32_t list_slot[kPlaceTile];  // slot - lo
-  __shared__ int32_t local_cursor[kSharedSlots];
-  __shared__ int step_count[kPlacePer * kWarps];  // owned rows per (u, warp)
-  __shared__ int list_len;
+  __shared__ int32_t local_cursor[kOwnerSlots];
+  __shared__ int step_count[kPlacePer * kWarps];  // per (u, warp)
+  __shared__ int zeros_total;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const unsigned lower_lanes = (1u << lane) - 1u;
-  const int64_t lo = static_cast<int64_t>(blockIdx.x) * span;
-  const int64_t hi = lo + span < cap ? lo + span : cap;
-  const bool local = span <= kSharedSlots;
-  if (local) {  // positions in `grouped` are below n < 2^31
-    for (int64_t i = threadIdx.x; lo + i < hi; i += kThreads) {
-      local_cursor[i] = static_cast<int32_t>(cursor[lo + i]);
-    }
+  const int64_t lo = static_cast<int64_t>(blockIdx.x) * kOwnerSlots;
+  const int64_t hi = lo + kOwnerSlots < cap ? lo + kOwnerSlots : cap;
+  // positions in `grouped` are below n < 2^31
+  for (int64_t i = threadIdx.x; lo + i < hi; i += kThreads) {
+    local_cursor[i] = static_cast<int32_t>(slot_start[lo + i]);
   }
-  int32_t next[kPlacePer];
-  load_slots(row_slot, n, 0, next);
-  for (int64_t base = 0; base < n; base += kPlaceTile) {
-    // row base + u * kThreads + threadIdx.x: (u, warp, lane) is row order
-    int32_t s[kPlacePer];
-#pragma unroll
-    for (int u = 0; u < kPlacePer; ++u) s[u] = next[u];
-    load_slots(row_slot, n, base + kPlaceTile, next);
-    unsigned owned[kPlacePer];
+  const int64_t beg = owner_start[blockIdx.x];
+  const int64_t end = beg + owner_count[blockIdx.x];
+  const int sentinel = static_cast<int>(hi - lo);  // sorts after every slot
+  const int key_bits = 32 - __clz(sentinel);
+  __syncthreads();
+  for (int64_t base = beg; base < end; base += kPlaceTile) {
+    int32_t key[kPlacePer], row[kPlacePer];
 #pragma unroll
     for (int u = 0; u < kPlacePer; ++u) {
-      owned[u] = __ballot_sync(kFull, s[u] >= lo && s[u] < hi);
-      if (lane == 0) step_count[u * kWarps + warp] = __popc(owned[u]);
+      const int64_t p = base + u * kThreads + threadIdx.x;
+      row[u] = p < end ? perm[p] : 0;
     }
-    __syncthreads();
-    if (warp == 0) {  // exclusive scan of the counts, 2 a lane
-      const int c0 = step_count[2 * lane];
-      const int c1 = step_count[2 * lane + 1];
-      int incl = c0 + c1;
 #pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int t = __shfl_up_sync(kFull, incl, d);
-        if (lane >= d) incl += t;
+    for (int u = 0; u < kPlacePer; ++u) {
+      const int64_t p = base + u * kThreads + threadIdx.x;
+      key[u] = p < end ? static_cast<int>(row_slot[row[u]] - lo) : sentinel;
+    }
+    for (int bit = 0; bit < key_bits; ++bit) {
+      unsigned zeros[kPlacePer];
+#pragma unroll
+      for (int u = 0; u < kPlacePer; ++u) {
+        zeros[u] = __ballot_sync(kFull, !((key[u] >> bit) & 1));
+        if (lane == 0) step_count[u * kWarps + warp] = __popc(zeros[u]);
       }
-      step_count[2 * lane] = incl - c0 - c1;
-      step_count[2 * lane + 1] = incl - c1;
-      if (lane == 31) list_len = incl;
+      __syncthreads();  // and the last split's entries are in registers
+      scan_step_counts(step_count, &zeros_total);
+      __syncthreads();
+      const int total_zeros = zeros_total;
+#pragma unroll
+      for (int u = 0; u < kPlacePer; ++u) {
+        const int p = u * kThreads + threadIdx.x;
+        const int zb = step_count[u * kWarps + warp]
+                       + __popc(zeros[u] & lower_lanes);
+        const int pos = ((key[u] >> bit) & 1) ? total_zeros + (p - zb) : zb;
+        list_slot[pos] = key[u];
+        list_row[pos] = row[u];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < kPlacePer; ++u) {
+        const int p = u * kThreads + threadIdx.x;
+        key[u] = list_slot[p];
+        row[u] = list_row[p];
+      }
+    }
+    // runs of one slot: head, every row, tail
+#pragma unroll
+    for (int u = 0; u < kPlacePer; ++u) {
+      const int p = u * kThreads + threadIdx.x;
+      if (key[u] != sentinel && (p == 0 || list_slot[p - 1] != key[u]))
+        local_cursor[key[u]] -= p;
     }
     __syncthreads();
 #pragma unroll
     for (int u = 0; u < kPlacePer; ++u) {
-      if ((owned[u] >> lane) & 1u) {
-        const int pos = step_count[u * kWarps + warp]
-                        + __popc(owned[u] & lower_lanes);
-        list_row[pos] = static_cast<int32_t>(base + u * kThreads
-                                             + threadIdx.x);
-        list_slot[pos] = static_cast<int32_t>(s[u] - lo);
-      }
+      const int p = u * kThreads + threadIdx.x;
+      if (key[u] != sentinel) grouped[local_cursor[key[u]] + p] = row[u];
     }
     __syncthreads();
-    if (warp == 0) {
-      const int len = list_len;
-      for (int j = 0; j < len; j += 32) {
-        const bool valid = j + lane < len;
-        const unsigned m = __ballot_sync(kFull, valid);
-        if (valid) {
-          const int32_t rel = list_slot[j + lane];
-          const unsigned grp = __match_any_sync(m, rel);
-          const int rank = __popc(grp & lower_lanes);
-          const int64_t pos =
-              (local ? local_cursor[rel] : cursor[lo + rel]) + rank;
-          grouped[pos] = list_row[j + lane];
-          __syncwarp(m);  // the group reads its cursor before it moves
-          if (rank == 0) {
-            const int64_t moved = pos + __popc(grp);
-            if (local) {
-              local_cursor[rel] = static_cast<int32_t>(moved);
-            } else {
-              cursor[lo + rel] = moved;
-            }
-          }
-        }
-        __syncwarp();  // the move is seen by the next step's readers
-      }
+#pragma unroll
+    for (int u = 0; u < kPlacePer; ++u) {
+      const int p = u * kThreads + threadIdx.x;
+      if (key[u] != sentinel &&
+          (p == kPlaceTile - 1 || list_slot[p + 1] != key[u]))
+        local_cursor[key[u]] += p + 1;
     }
-    __syncthreads();  // the list and the counts are reused by the next tile
+    __syncthreads();  // the list, the counts and the cursors are reused
   }
 }
 
@@ -255,30 +281,37 @@ inline unsigned blocks_for(int64_t n) {
 
 // Every entry point launches on `stream` and returns cudaGetLastError() as
 // an int (0 = success).  slot_row and slot_count arrive zeroed.
+// row_owner (int64) gets each row's owner, its slot / 8,064.
 extern "C" int quipt_join_insert(const void* keys, int64_t n, int log2cap,
                                  void* slot_row, void* slot_count,
-                                 void* row_slot, void* stream) {
+                                 void* row_slot, void* row_owner,
+                                 void* stream) {
   if (n == 0) return 0;
   join_insert_kernel<<<blocks_for(n), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(keys), n, log2cap,
       static_cast<int32_t*>(slot_row), static_cast<int32_t*>(slot_count),
-      static_cast<int32_t*>(row_slot));
+      static_cast<int32_t*>(row_slot), static_cast<int64_t*>(row_owner));
   return static_cast<int>(cudaGetLastError());
 }
 
-// cursor arrives holding each slot's start in `grouped`; it is consumed.
-extern "C" int quipt_join_place(const void* row_slot, int64_t n, void* cursor,
+// One block per owner, ceil(cap / 8,064) of them; perm lists the rows
+// grouped by owner, owner_start / owner_count (int64) each owner's range
+// of it, slot_start (int64) each slot's start in `grouped`.
+extern "C" int quipt_join_place(const void* perm, const void* owner_start,
+                                const void* owner_count, int64_t owners,
+                                const void* row_slot, const void* slot_start,
                                 void* grouped, int64_t cap, void* stream) {
-  if (n == 0) return 0;
-  int64_t blocks = (cap + kSharedSlots - 1) / kSharedSlots;
-  if (blocks > kMaxPlaceBlocks) blocks = kMaxPlaceBlocks;
-  const int64_t span = (cap + blocks - 1) / blocks;
-  join_place_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+  if (owners != (cap + kOwnerSlots - 1) / kOwnerSlots || owners > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  join_place_kernel<<<static_cast<unsigned>(owners), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(row_slot), n,
-      static_cast<int64_t*>(cursor), static_cast<int32_t*>(grouped), cap,
-      span);
+      static_cast<const int32_t*>(perm),
+      static_cast<const int64_t*>(owner_start),
+      static_cast<const int64_t*>(owner_count),
+      static_cast<const int32_t*>(row_slot),
+      static_cast<const int64_t*>(slot_start), static_cast<int32_t*>(grouped),
+      cap);
   return static_cast<int>(cudaGetLastError());
 }
 

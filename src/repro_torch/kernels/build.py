@@ -43,9 +43,13 @@ _SIGNATURES = {
                           _c_int, _c_int, _c_void_p],
     "quipt_masked_distance": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
                               _c_void_p, _c_int, _c_int, _c_int, _c_void_p],
+    "quipt_masked_knn": [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
+                         _c_int, _c_int, _c_int, _c_int, _c_void_p, _c_void_p,
+                         _c_void_p, _c_void_p],
     "quipt_join_insert": [_c_void_p, _c_int64, _c_int, _c_void_p, _c_void_p,
-                          _c_void_p, _c_void_p],
-    "quipt_join_place": [_c_void_p, _c_int64, _c_void_p, _c_void_p, _c_int64,
+                          _c_void_p, _c_void_p, _c_void_p],
+    "quipt_join_place": [_c_void_p, _c_void_p, _c_void_p, _c_int64,
+                         _c_void_p, _c_void_p, _c_void_p, _c_int64,
                          _c_void_p],
     "quipt_join_probe": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
                          _c_int64, _c_int, _c_void_p, _c_void_p, _c_void_p],

@@ -6,7 +6,10 @@ hash the full int64 key into a table of distinct keys, group the build rows
 by key in ascending row order, and emit every ``(probe_idx, build_idx)``
 pair with equal keys, probe-major, build rows ascending within a probe —
 the order of ``core.triggers.multi_match``, exactly, with no 64-bit check
-left for the host.
+left for the host.  The grouping partitions the rows by owner (a range of
+``OWNER_SLOTS`` slots) with the segment kernels
+(``segment_ops.group_rows``), then one block per owner places its own
+rows; ``ref.hash_join_group_ref`` emulates the steps on the CPU.
 
 A CUDA tensor launches the kernels on the current stream; a CPU tensor
 takes the plain torch sort-join (``ref.hash_join_build_ref`` /
@@ -21,8 +24,9 @@ import torch
 
 from repro_torch.kernels import ref as _ref
 
-__all__ = ["JoinTable", "build_launches", "hash_join", "hash_join_build",
-           "hash_join_probe", "probe_launches", "table_log2cap"]
+__all__ = ["JoinTable", "OWNER_SLOTS", "build_launches", "hash_join",
+           "hash_join_build", "hash_join_probe", "probe_launches",
+           "table_log2cap"]
 
 #: build (insert + place) launches since the counter was last set to 0
 build_launches = 0
@@ -31,6 +35,9 @@ probe_launches = 0
 
 MIN_LOG2CAP = 7  # 128 slots
 MAX_BUILD_ROWS = 1 << 30  # a slot index and a row id must fit int32
+#: slots a place block owns, its cursors in shared memory (the kernel's
+#: ``kOwnerSlots``)
+OWNER_SLOTS = 8064
 
 
 class JoinTable(NamedTuple):
@@ -77,28 +84,34 @@ def hash_join_build(build_keys: torch.Tensor
     if n >= MAX_BUILD_ROWS:
         raise ValueError(f"{n} build rows exceed the kernel's "
                          f"{MAX_BUILD_ROWS}")
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, segment_ops
 
     dev = build_keys.device
     log2cap = table_log2cap(n)
     cap = 1 << log2cap
     slot_row = torch.zeros(cap, dtype=torch.int32, device=dev)
     slot_count = torch.zeros(cap, dtype=torch.int32, device=dev)
-    row_slot = torch.empty(n, dtype=torch.int32, device=dev)
     grouped = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return JoinTable(build_keys, log2cap, slot_row, slot_count,
                          slot_count.to(torch.int64), grouped)
+    row_slot = torch.empty(n, dtype=torch.int32, device=dev)
+    row_owner = torch.empty(n, dtype=torch.int64, device=dev)
+    owners = -(-cap // OWNER_SLOTS)
     lib = build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.quipt_join_insert(build_keys.data_ptr(), n, log2cap,
                                    slot_row.data_ptr(), slot_count.data_ptr(),
-                                   row_slot.data_ptr(), stream)
+                                   row_slot.data_ptr(), row_owner.data_ptr(),
+                                   stream)
         build.check(rc, "hash_join_build (insert)")
+        owner_count, owner_start, perm = segment_ops.group_rows(
+            lib, row_owner, owners, stream)
         slot_start = torch.cumsum(slot_count, 0, dtype=torch.int64) - slot_count
-        cursor = slot_start.clone()
-        rc = lib.quipt_join_place(row_slot.data_ptr(), n, cursor.data_ptr(),
+        rc = lib.quipt_join_place(perm.data_ptr(), owner_start.data_ptr(),
+                                  owner_count.data_ptr(), owners,
+                                  row_slot.data_ptr(), slot_start.data_ptr(),
                                   grouped.data_ptr(), cap, stream)
         build.check(rc, "hash_join_build (place)")
     build_launches += 1

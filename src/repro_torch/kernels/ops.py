@@ -40,11 +40,13 @@ from repro_torch.kernels.hash_join import hash_join as _hash_join_cuda
 from repro_torch.kernels.hashing import MULTIPLIERS, OFFSETS
 from repro_torch.kernels.knn_distance import (
     masked_distance as _masked_distance_cuda,
+    masked_knn as _masked_knn_cuda,
 )
 from repro_torch.kernels.neighbor_agg import (
     neighbor_mean as _neighbor_mean_cuda,
     neighbor_mode as _neighbor_mode_cuda,
 )
+from repro_torch.kernels.ref import smallest_k
 from repro_torch.kernels.segment_ops import OPS as _SEGMENT_OPS
 from repro_torch.kernels.segment_ops import (
     segment_reduce as _segment_reduce_cuda,
@@ -232,31 +234,16 @@ def _masked_distance_numpy(q, qm, r, rm) -> np.ndarray:
     return np.maximum(scaled, np.float32(0.0))
 
 
-def smallest_k(dmat: torch.Tensor, k: int
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per row, the ``k`` smallest entries of a non-negative float32
-    ``(b, n)`` matrix in ascending order, ties to the **lowest index** —
-    the order ``jax.lax.top_k`` gives on the negated matrix (``torch.topk``
-    does not promise one).
-
-    The float bits of a non-negative float32 (+inf included) order like
-    the value, so each entry becomes one unique int64 key
-    ``bits << 32 | column`` and a top-k over the keys is exact.
-    Returns ``(dists (b, k) float32, idx (b, k) int64)``."""
-    b, n = dmat.shape
-    key = dmat.contiguous().view(torch.int32).to(torch.int64)
-    key.bitwise_left_shift_(32)
-    key.bitwise_or_(torch.arange(n, dtype=torch.int64, device=dmat.device))
-    top, _ = torch.topk(key, k, dim=1, largest=False, sorted=True)
-    idx = top & 0xFFFFFFFF
-    dists = (top >> 32).to(torch.int32).view(torch.float32)
-    return dists, idx
-
-
 def masked_knn(q, qm, r, rm, k: int, *, impl: Optional[str] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k smallest masked partial distances per query row:
-    ``(dists (nq, k), idx (nq, k))``, ties to the lowest index."""
+    ``(dists (nq, k), idx (nq, k))``, ties to the lowest index.  ``cuda``
+    runs the fused kernels (``knn_distance.masked_knn``: the distance
+    matrix is never written, for k <= 32); ``ref`` and ``numpy`` compute
+    the matrix and take ``smallest_k`` of it."""
+    device = q.device if isinstance(q, torch.Tensor) else torch.device("cpu")
+    if resolve_dist_impl(impl, device) == "cuda":
+        return _masked_knn_cuda(q, qm, r, rm, k)
     dmat = masked_distance(q, qm, r, rm, impl=impl)
     if not isinstance(dmat, torch.Tensor):
         dmat = torch.from_numpy(dmat)

@@ -27,13 +27,17 @@ __all__ = [
     "attention_ref",
     "bloom_probe_ref",
     "hash_join_build_ref",
+    "hash_join_group_ref",
     "hash_join_probe_ref",
     "hash_join_ref",
     "masked_distance_ref",
+    "masked_knn_ref",
+    "masked_knn_split_ref",
     "neighbor_mean_ref",
     "neighbor_mode_ref",
     "numpy_sum_block",
     "segment_reduce_ref",
+    "smallest_k",
 ]
 
 _U32 = 0xFFFFFFFF
@@ -103,6 +107,151 @@ def masked_distance_ref(q: torch.Tensor, qm: torch.Tensor, r: torch.Tensor,
     return scaled.clamp_min(0.0)
 
 
+def _distance_keys(dmat: torch.Tensor) -> torch.Tensor:
+    """One unique int64 key ``bits << 32 | column`` per entry of a
+    non-negative float32 ``(b, n)`` matrix: the bits of a non-negative
+    float32 (+inf included) order like the value, so the keys order like
+    the entries with ties to the lowest column."""
+    key = dmat.contiguous().view(torch.int32).to(torch.int64)
+    key.bitwise_left_shift_(32)
+    key.bitwise_or_(torch.arange(dmat.shape[1], dtype=torch.int64,
+                                 device=dmat.device))
+    return key
+
+
+def _unkey(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dists float32, idx int64)`` of distance keys."""
+    return (keys >> 32).to(torch.int32).view(torch.float32), keys & _U32
+
+
+def smallest_k(dmat: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per row, the ``k`` smallest entries of a non-negative float32
+    ``(b, n)`` matrix in ascending order, ties to the **lowest index** —
+    the order ``jax.lax.top_k`` gives on the negated matrix (``torch.topk``
+    does not promise one): a top-k over the unique keys
+    ``bits << 32 | column``, which is exact.
+    Returns ``(dists (b, k) float32, idx (b, k) int64)``."""
+    top, _ = torch.topk(_distance_keys(dmat), k, dim=1, largest=False,
+                        sorted=True)
+    return _unkey(top)
+
+
+def masked_knn_ref(q: torch.Tensor, qm: torch.Tensor, r: torch.Tensor,
+                   rm: torch.Tensor, k: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the fused KNN kernels: the ``k`` nearest reference
+    rows of each query row, ``smallest_k(masked_distance_ref(...), k)``."""
+    return smallest_k(masked_distance_ref(q, qm, r, rm), k)
+
+
+# The fused kernels' selection (csrc/knn_distance.cu), emulated with the
+# lanes of a warp as the last axis.  Keys are int64 here, with the int64
+# maximum as the pad where the kernels use UINT64_MAX: every real key is
+# below 2^63 (a float's bits are below 2^31), so the order is the same.
+_KEY_PAD = torch.iinfo(torch.int64).max
+_LANES = 32
+_KNN_TILE_COLS = 128
+
+
+def _warp_sort(v: torch.Tensor) -> torch.Tensor:
+    """The kernel's ``warp_sort``: a bitonic sort of each row's 32 keys."""
+    lane = torch.arange(_LANES, device=v.device)
+    size = 2
+    while size <= _LANES:
+        stride = size // 2
+        while stride:
+            o = v[:, lane ^ stride]
+            keep_min = ((lane & stride) == 0) == ((lane & size) == 0)
+            v = torch.where(keep_min, torch.minimum(v, o),
+                            torch.maximum(v, o))
+            stride //= 2
+        size *= 2
+    return v
+
+
+def _warp_merge(lst: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
+    """The kernel's ``warp_merge``: the 32 smallest of a sorted list and
+    32 candidates, sorted — the list against the reversed sorted
+    candidates, then a bitonic merge."""
+    lane = torch.arange(_LANES, device=lst.device)
+    v = torch.minimum(lst, _warp_sort(cand).flip(1))
+    for stride in (16, 8, 4, 2, 1):
+        o = v[:, lane ^ stride]
+        v = torch.where((lane & stride) == 0, torch.minimum(v, o),
+                        torch.maximum(v, o))
+    return v
+
+
+def _select(keys: torch.Tensor, k: int) -> torch.Tensor:
+    """The select kernel on one range of columns, every row at once: the
+    range's keys 32 columns at a time (a ballot), those below the row's
+    threshold into its 32-key buffer in column order, a merge when the
+    buffer would overflow and at the end.  Returns each row's ``k``
+    smallest, padded where the range has fewer than ``k`` columns."""
+    rows, n = keys.shape
+    dev = keys.device
+    lane = torch.arange(_LANES, device=dev)
+    lst = torch.full((rows, _LANES), _KEY_PAD, dtype=torch.int64, device=dev)
+    thr = torch.full((rows,), _KEY_PAD, dtype=torch.int64, device=dev)
+    buf = torch.full_like(lst, _KEY_PAD)
+    length = torch.zeros(rows, dtype=torch.int64, device=dev)
+
+    def flush(sel: torch.Tensor) -> None:
+        cand = torch.where(lane < length[:, None], buf,
+                           torch.full_like(buf, _KEY_PAD))
+        lst[sel] = _warp_merge(lst[sel], cand[sel])
+        thr[sel] = lst[sel, k - 1]
+        length[sel] = 0
+
+    for g0 in range(0, n, _LANES):
+        grp = torch.full((rows, _LANES), _KEY_PAD, dtype=torch.int64,
+                         device=dev)
+        grp[:, :min(_LANES, n - g0)] = keys[:, g0:g0 + _LANES]
+        passes = grp < thr[:, None]
+        over = length + passes.sum(1) > _LANES
+        if over.any():
+            flush(over)
+            passes = grp < thr[:, None]
+        pos = length[:, None] + passes.cumsum(1) - 1
+        at = passes.nonzero(as_tuple=True)
+        buf[at[0], pos[at]] = grp[at]
+        length += passes.sum(1)
+    flush(length > 0)
+    return lst[:, :k]
+
+
+def masked_knn_split_ref(q: torch.Tensor, qm: torch.Tensor, r: torch.Tensor,
+                         rm: torch.Tensor, k: int, splits: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Emulation of the fused KNN kernels (``csrc/knn_distance.cu``), the
+    specification their selection follows: the keys of ``smallest_k``; the
+    columns cut into ``splits`` ranges of whole 128-column tiles (the
+    select kernel's grid), each range's ``k`` smallest per row, padded
+    where it holds fewer than ``k`` columns; then the merge of each row's
+    ``splits * k`` keys, 32 at a time.  Equals ``masked_knn_ref``."""
+    if not 1 <= k <= min(_LANES, r.shape[0]):
+        raise ValueError(f"the fused kernels take 1 <= k <= min(32, nr), "
+                         f"got k = {k}, nr = {r.shape[0]}")
+    keys = _distance_keys(masked_distance_ref(q, qm, r, rm))
+    nq, nr = keys.shape
+    tiles = -(-nr // _KNN_TILE_COLS)
+    span = -(-tiles // splits) * _KNN_TILE_COLS
+    parts = [_select(keys[:, lo:lo + span], k) if lo < nr else
+             torch.full((nq, k), _KEY_PAD, dtype=torch.int64,
+                        device=keys.device)
+             for lo in range(0, splits * span, span)]
+    part = torch.stack(parts, dim=1).reshape(nq, splits * k)
+    lst = torch.full((nq, _LANES), _KEY_PAD, dtype=torch.int64,
+                     device=keys.device)
+    for b0 in range(0, splits * k, _LANES):
+        cand = torch.full_like(lst, _KEY_PAD)
+        chunk = part[:, b0:b0 + _LANES]
+        cand[:, :chunk.shape[1]] = chunk
+        lst = _warp_merge(lst, cand)
+    return _unkey(lst[:, :k])
+
+
 def hash_join_build_ref(build_keys: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Build half of the sort-join: ``(sorted_keys, order)`` with
@@ -139,6 +288,78 @@ def hash_join_ref(build_keys: torch.Tensor, probe_keys: torch.Tensor
     build_idx)`` pair with equal keys, as int64 tensors, ordered by probe
     index and, within a probe, by ascending build index."""
     return hash_join_probe_ref(*hash_join_build_ref(build_keys), probe_keys)
+
+
+def _home_slots(keys: np.ndarray, log2cap: int) -> np.ndarray:
+    """The kernels' home slot of each int64 key: the top ``log2cap`` bits
+    of its splitmix64 finaliser (uint64 arithmetic wraps in numpy)."""
+    x = keys.astype(np.int64).view(np.uint64)
+    with np.errstate(over="ignore"):
+        x = x ^ (x >> np.uint64(30))
+        x = x * np.uint64(0xBF58476D1CE4E5B9)
+        x = x ^ (x >> np.uint64(27))
+        x = x * np.uint64(0x94D049BB133111EB)
+        x = x ^ (x >> np.uint64(31))
+    return (x >> np.uint64(64 - log2cap)).astype(np.int64)
+
+
+def hash_join_group_ref(build_keys: torch.Tensor, log2cap: int,
+                        owner_slots: int, chunk_rows: int):
+    """Emulation of the hash join's build (``csrc/hash_join.cu``), the
+    specification its grouping follows.  Returns ``(row_slot, slot_count,
+    slot_start, grouped, perm)`` as host int64 arrays.
+
+    1. insert: each distinct key takes a slot by linear probing from its
+       home slot (here in order of first occurrence; the kernel's claims
+       race, and any such placement groups the same way);
+    2. the rows partitioned by owner (``slot // owner_slots``), stably: a
+       count per (chunk of ``chunk_rows`` rows, owner), an exclusive scan
+       down the chunks and across the owners, each row placed at its
+       owner's start + its chunk's offset + its rank in the chunk (``perm``);
+    3. each owner walks its rows in ``perm`` order and puts each at its
+       slot's cursor, which starts at ``slot_start`` and moves one row on:
+       a row's place is its slot's start + the number of rows of its slot
+       before it in ``perm``.  Every slot belongs to one owner, whose rows
+       come in ascending order, so each key's rows come out ascending."""
+    keys = build_keys.cpu().numpy()
+    n = len(keys)
+    cap = 1 << log2cap
+    uniq, first, inverse = np.unique(keys, return_index=True,
+                                     return_inverse=True)
+    home = _home_slots(uniq, log2cap)
+    taken = np.zeros(cap, dtype=bool)
+    key_slot = np.empty(len(uniq), dtype=np.int64)
+    for u in np.argsort(first, kind="stable"):
+        s = home[u]
+        while taken[s]:
+            s = (s + 1) & (cap - 1)
+        taken[s] = True
+        key_slot[u] = s
+    row_slot = key_slot[inverse.reshape(-1)]
+    slot_count = np.bincount(row_slot, minlength=cap)
+    slot_start = np.cumsum(slot_count) - slot_count
+    owners = -(-cap // owner_slots)
+    owner = row_slot // owner_slots
+    chunk = np.arange(n) // chunk_rows
+    chunks = int(chunk.max(initial=-1)) + 1
+    cell = chunk * owners + owner
+    counts = np.bincount(cell, minlength=chunks * owners).reshape(chunks,
+                                                                  owners)
+    offsets = np.cumsum(counts, axis=0) - counts  # down the chunks
+    owner_count = counts.sum(axis=0)
+    owner_start = np.cumsum(owner_count) - owner_count
+    order = np.argsort(cell, kind="stable")
+    cell_start = (np.cumsum(counts.ravel()) - counts.ravel())[cell[order]]
+    rank = np.empty(n, dtype=np.int64)
+    rank[order] = np.arange(n) - cell_start
+    perm = np.empty(n, dtype=np.int64)
+    perm[owner_start[owner] + offsets[chunk, owner] + rank] = np.arange(n)
+    before = np.empty(n, dtype=np.int64)  # rows of the slot earlier in perm
+    by_slot = np.argsort(row_slot[perm], kind="stable")
+    before[by_slot] = np.arange(n) - slot_start[row_slot[perm][by_slot]]
+    grouped = np.empty(n, dtype=np.int64)
+    grouped[slot_start[row_slot[perm]] + before] = perm
+    return row_slot, slot_count, slot_start, grouped, perm
 
 
 def neighbor_mean_ref(vals: torch.Tensor) -> torch.Tensor:

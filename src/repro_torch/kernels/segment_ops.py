@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.kernels import build, ref as _ref
 
-__all__ = ["OPS", "launches", "place_grid", "segment_reduce"]
+__all__ = ["OPS", "group_rows", "launches", "place_grid", "segment_reduce"]
 
 #: calls that launched the kernels since the counter was last set to 0
 launches = 0
@@ -95,9 +95,11 @@ def place_grid(n: int, num_segments: int) -> Tuple[int, int, int]:
     return ranges, max(1, -(-n // chunk_rows)), chunk_rows
 
 
-def _group(lib, seg: torch.Tensor, num_segments: int, stream: int):
-    """Steps 1-4 of the kernels: each segment's count and start, and the
-    rows grouped by segment in row order (int32)."""
+def group_rows(lib, seg: torch.Tensor, num_segments: int, stream: int):
+    """Steps 1-4 of the kernels: each segment's count and start (int64),
+    and the rows grouped by segment in row order (int32).  Also the hash
+    join's partition of its build rows by owner
+    (``hash_join.hash_join_build``)."""
     dev = seg.device
     n = seg.shape[0]
     ranges, chunks, chunk_rows = place_grid(n, num_segments)
@@ -163,7 +165,8 @@ def segment_reduce(vals: Optional[torch.Tensor], seg: torch.Tensor,
                 counts.data_ptr(), None, stream), "segment_reduce (count)")
             launches += 1
             return counts
-        counts, starts, grouped = _group(lib, seg, num_segments, stream)
+        counts, starts, grouped = group_rows(lib, seg, num_segments,
+                                             stream)
         out = _reduce(lib, vals, op, counts, starts, grouped, stream)
     launches += 1
     return out

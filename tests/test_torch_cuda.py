@@ -79,6 +79,63 @@ def test_masked_knn_ties_on_card(cuda_device):
     assert idx.cpu().tolist() == [[2, 0, 1], [0, 1, 2]]
 
 
+_KNN_SHAPES = [(1, 1, 1), (3, 5, 7), (64, 64, 32), (130, 200, 96),
+               (128, 256, 128), (1024, 5000, 4), (3, 40_000, 4),
+               (64, 130, 4), (1000, 3000, 9)]
+
+
+@pytest.mark.parametrize("nq,nr,d,k", [
+    (nq, nr, d, k) for nq, nr, d in _KNN_SHAPES
+    for k in sorted({1, 5, 32, min(nr, 32)}) if k <= nr])
+def test_masked_knn_fused_kernel_equals_plain(cuda_device, nq, nr, d, k):
+    rng = np.random.default_rng(nq * 1000 + nr + d + k)
+    arrs = [rng.normal(size=(nq, d)), (rng.random((nq, d)) > 0.35),
+            rng.normal(size=(nr, d)), (rng.random((nr, d)) > 0.35)]
+    q, qm, r, rm = (torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+                    for a in arrs)
+    qm[0] = 0.0  # a row with no observed feature: every distance +inf
+    before = (kd.knn_launches, kd.launches)
+    got = kd.masked_knn(q, qm, r, rm, k)
+    torch.cuda.synchronize()
+    assert (kd.knn_launches, kd.launches) == (before[0] + 1, before[1])
+    want = kref.masked_knn_ref(q, qm, r, rm, k)
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0])
+
+
+def test_masked_knn_ties_on_the_fused_kernel(cuda_device):
+    rng = np.random.default_rng(5)
+    ties = rng.integers(0, 3, (64, 4)).astype(np.float32)
+    q = torch.from_numpy(ties).to(cuda_device)
+    r = torch.from_numpy(np.tile(ties[:10], (500, 1))).to(cuda_device)
+    ones_q, ones_r = torch.ones_like(q), torch.ones_like(r)
+    for k in (1, 5, 32):
+        got = kd.masked_knn(q, ones_q, r, ones_r, k)
+        want = kref.masked_knn_ref(q, ones_q, r, ones_r, k)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    one = [torch.tensor(a, device=cuda_device) for a in
+           ([[0.0]], [[1.0]], [[1.0], [1.0], [0.5], [1.0]], [[1.0]] * 4)]
+    assert kd.masked_knn(*one, 3)[1].cpu().tolist() == [[2, 0, 1]]
+
+
+def test_masked_knn_unfused_route_above_32(cuda_device):
+    rng = np.random.default_rng(33)
+    q, qm, r, rm = (torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+                    for a in (rng.normal(size=(300, 5)),
+                              rng.random((300, 5)) > 0.3,
+                              rng.normal(size=(7000, 5)),
+                              rng.random((7000, 5)) > 0.3))
+    before = (kd.knn_launches, kd.launches, kd.route_launches["unfused"])
+    got = kops.masked_knn(q, qm, r, rm, k=33)
+    torch.cuda.synchronize()
+    assert (kd.knn_launches, kd.launches, kd.route_launches["unfused"]) \
+        == (before[0], before[1] + 1, before[2] + 1)
+    want = kref.masked_knn_ref(q, qm, r, rm, 33)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    with pytest.raises(ValueError):
+        kd.masked_knn(q, qm, r[:20].contiguous(), rm[:20].contiguous(), 21)
+
+
 def test_wrappers_reject_bad_input(cuda_device):
     q = torch.zeros((4, 3), device=cuda_device)
     with pytest.raises(ValueError):
@@ -139,6 +196,33 @@ def test_hash_join_kernels_equal_plain(cuda_device, name):
         assert torch.equal(g, w)
     for g, w in zip(got, kops.sort_join(b, p)):
         np.testing.assert_array_equal(g.cpu().numpy(), w)
+
+
+def test_hash_join_build_at_2_21_slots_with_a_run_of_831(cuda_device):
+    rng = np.random.default_rng(21)
+    b = rng.integers(0, 12_000, 1_000_000)
+    b[rng.choice(len(b), 831, replace=False)] = -1
+    p = np.concatenate([rng.integers(0, 13_000, 3000), [-1, -1]])
+    assert hj.table_log2cap(len(b)) == 21  # 261 owners of 8,064 slots
+    bt = torch.from_numpy(b).to(cuda_device)
+    pt = torch.from_numpy(p).to(cuda_device)
+    table = hj.hash_join_build(bt)
+    torch.cuda.synchronize()
+    sorted_keys, order = kref.hash_join_build_ref(bt)
+    # every key's rows at its slot's range, ascending
+    rows = table.grouped.to(torch.int64)
+    by_slot = table.slot_row.cpu().numpy()
+    start, count = table.slot_start.cpu().numpy(), table.slot_count.cpu()
+    keys = table.keys.cpu().numpy()
+    for s in np.nonzero(by_slot)[0][::97]:
+        got = rows[start[s]:start[s] + int(count[s])].cpu().numpy()
+        np.testing.assert_array_equal(got, np.nonzero(b == keys[by_slot[s]
+                                                                - 1])[0])
+    assert torch.equal(torch.sort(rows).values,
+                       torch.arange(len(b), device=cuda_device))
+    got = hj.hash_join_probe(table, pt)
+    for g, w in zip(got, kref.hash_join_probe_ref(sorted_keys, order, pt)):
+        assert torch.equal(g, w)
 
 
 def test_hash_join_match_on_card(cuda_device):
