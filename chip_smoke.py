@@ -45,6 +45,16 @@ The fused kernel must equal ``smallest_k`` of the plain distances exactly,
 at ragged shapes, tie rows, k of 1 to 33 and nr, and the main path's call;
 cdc also runs slice 1 with ``KnnImputer(k=33)``, the unfused route.
 
+Slice 7 redesigns the hash-join probe (one probe-and-scan kernel with a
+decoupled look-back, one host wait for the number of pairs, a merge-path
+emit) and the neighbour mode (the KNN's neighbour ids and the targets in,
+the gather inside the kernel).  The probe is timed two ways at the main
+path's largest build and largest probe calls: the kernels' device time
+(profiler) and the ``cuda_ms`` window, which holds the host's round trip;
+the mode at the main path's ids beside the gather + values-form pair it
+replaced; an empty kernel gives the floor of one launch.  No mode call on
+the main paths may gather its values outside the kernel.
+
 Each configuration runs once through the kernels and once through the plain
 versions, whose answers and imputation counts must agree; slice 2's wifi
 answers must also equal slice 1's.  The last phases check the paper's
@@ -66,6 +76,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import inspect
 import json
 import os
 import re
@@ -91,7 +102,7 @@ BF16_TENSOR_OPS_PER_S = 989e12  # dense, tensor cores
 PORT_KERNELS = ("bloom_probe_kernel", "masked_distance_kernel",
                 "masked_knn_select_kernel", "masked_knn_merge_kernel",
                 "join_insert_kernel", "join_place_kernel",
-                "join_probe_kernel", "join_emit_kernel",
+                "join_probe_scan_kernel", "join_emit_kernel",
                 "neighbor_mean_kernel", "neighbor_mode_kernel",
                 "segment_count_kernel", "segment_scan_kernel",
                 "segment_place_kernel", "segment_small_kernel",
@@ -142,7 +153,15 @@ def cuda_ms(fn, reps: int) -> float:
     Each call gets its own CUDA-event pair.  A spin kernel queued ahead of
     the pair keeps the stream busy while the host enqueues the pair and
     the call, so the span between the events is the call's device time
-    and not the host's launch time."""
+    and not the host's launch time -- up to the first point where the call
+    waits for the device: from there on the window holds the host's
+    round trip too."""
+    return float(np.median([s.elapsed_time(e) for s, e in windows(fn, reps)]))
+
+
+def windows(fn, reps: int):
+    """``cuda_ms``'s ``(start, end)`` event pairs, one per call, after the
+    stream has drained."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -150,7 +169,7 @@ def cuda_ms(fn, reps: int) -> float:
     host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     spin_cycles = int(min(max(4 * host_s, 50e-6), 20e-3) * 2e9)
-    times = []
+    pairs = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -159,8 +178,8 @@ def cuda_ms(fn, reps: int) -> float:
         fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+        pairs.append((start, end))
+    return pairs
 
 
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
@@ -235,6 +254,21 @@ def knn_matrices(tables, table: str, attr: str, dev, knn_mod, nq=1024):
     q = imp._feat[idx][:, keep].contiguous()
     qm = imp._mask[idx][:, keep].contiguous()
     return q, qm, r, rm
+
+
+def knn_mode_inputs(tables, table: str, attr: str, dev, knn_mod, kops,
+                    nq=1024):
+    """The (nq, k) neighbour ids and the reference rows' int64 targets that
+    the KNN imputer hands the mode for the first ``nq`` missing cells of an
+    integer attribute, for ``--kernels``, which runs no query to record
+    them."""
+    rel = tables[table]
+    imp = knn_mod.KnnImputer(k=5, device=dev)
+    imp.fit(rel)
+    r, rm, keep, tgt = imp._reference(rel, attr)
+    q, qm, _, _ = knn_matrices(tables, table, attr, dev, knn_mod, nq)
+    _, ids = kops.masked_knn(q, qm, r, rm, k=5)
+    return ids.contiguous(), torch.from_numpy(tgt.astype(np.int64)).to(dev)
 
 
 def compare_distance(kd, kref, q, qm, r, rm) -> float:
@@ -439,6 +473,15 @@ def main_like_join_keys(seed: int = 6):
     return build.astype(np.int64), probe.astype(np.int64)
 
 
+def main_like_probe_keys(seed: int = 8):
+    """Keys shaped like the main path's largest probe (1,940 build keys over
+    35 values, 333,623 probe keys: about 18.5M pairs), for ``--kernels``."""
+    rng = np.random.default_rng(seed)
+    build = rng.integers(0, 35, 1940)
+    probe = rng.integers(0, 35, 333_623)
+    return build.astype(np.int64), probe.astype(np.int64)
+
+
 # hash join: the reference tests' cases (tests/test_hash_join.py), the
 # engine's two missing-key sentinels, and one call at the wifi spine's size
 JOIN_CASES = {
@@ -498,6 +541,16 @@ def check_join(dev, hj, kref, kops) -> int:
     # 1.2M build rows: past the size whose build cursors fit on chip
     cases["1.2M build rows"] = spine_like_keys(n_build=1_200_000,
                                                n_probe=20_000)
+    # the emit's tile edges: T - 1, T and T + 1 pairs; then as many probes
+    # and pairs merged; then tiles of probes without a match
+    tile = hj.EMIT_TILE
+    for n in (tile - 1, tile, tile + 1):
+        cases[f"{n} pairs"] = ([7] * n + list(range(100, 140)), [7])
+        cases[f"{n} probes and pairs"] = ([7] * (n - 4)
+                                          + list(range(100, 140)),
+                                          [7, -3, -3, -3])
+    cases["all-miss probes"] = (list(range(5000)),
+                                list(range(10_000, 20_000)) + [3])
     for what, (b, p) in cases.items():
         b = np.asarray(b, dtype=np.int64)
         p = np.asarray(p, dtype=np.int64)
@@ -516,34 +569,104 @@ def time_join(dev, hj, kref, kops, b: np.ndarray, p: np.ndarray):
     sort-join's two halves, and the bounds of the two halves."""
     bt = torch.from_numpy(b).to(dev)
     pt = torch.from_numpy(p).to(dev)
-    table = hj.hash_join_build(bt)
-    got = hj.hash_join_probe(table, pt)
+    got = hj.hash_join_probe(hj.hash_join_build(bt), pt)
     err = join_err(got, kref.hash_join_ref(bt, pt), kops.sort_join(b, p),
                    "the main path's largest call")
-    total = len(got[0])
-    sorted_keys, order = kref.hash_join_build_ref(bt)
     build_ms = cuda_ms(lambda: hj.hash_join_build(bt), reps=20)
     build_plain = cuda_ms(lambda: kref.hash_join_build_ref(bt), reps=20)
-    probe_ms = cuda_ms(lambda: hj.hash_join_probe(table, pt), reps=20)
-    probe_plain = cuda_ms(
-        lambda: kref.hash_join_probe_ref(sorted_keys, order, pt), reps=20)
     profile_calls(f"hash_join_build at {len(b)} keys",
                   lambda: hj.hash_join_build(bt), calls=20)
     _, dup = np.unique(b, return_counts=True)
-    n, m = len(b), len(p)
+    n = len(b)
     # build: read the keys, write the rows grouped by key and, per distinct
-    # key, its key, start and count; probe: read the probe keys and the
-    # matched build rows, write the int64 pairs
+    # key, its key, start and count
     build_bound = bound_ms(nbytes=8 * n + 4 * n + 20 * len(dup), ops=n)
-    probe_bound = bound_ms(nbytes=8 * m + 4 * total + 16 * total, ops=m)
-    shape = (f"build {n} x probe {m} keys, {total} pairs, "
+    shape = (f"build {n} x probe {len(p)} keys, {len(got[0])} pairs, "
              f"{len(dup)} distinct build keys, max dup {int(dup.max())}")
+    probe = time_probe(dev, hj, kref, kops, b, p, "the largest build")
     return (
         {"ms": build_ms, "plain_ms": build_plain, "bound_ms": build_bound[0],
          "bound_by": build_bound[1], "err": err, "shape": shape},
-        {"ms": probe_ms, "plain_ms": probe_plain, "bound_ms": probe_bound[0],
-         "bound_by": probe_bound[1], "err": err, "shape": shape},
+        probe,
     )
+
+
+def time_probe(dev, hj, kref, kops, b: np.ndarray, p: np.ndarray, what: str,
+               split: bool = True):
+    """The probe at one call's keys, two ways: the ``cuda_ms`` window, which
+    holds the call's host round trip for the number of pairs, and the
+    device time of the kernels it launches (the profiler's sum); the plain
+    probe's window beside them.  Its pairs are held against the plain
+    version's and multi_match's first.  ``split``: also cut the window at
+    the one host wait (``--kernels`` runs older checkouts, which have
+    none)."""
+    bt = torch.from_numpy(b).to(dev)
+    pt = torch.from_numpy(p).to(dev)
+    table = hj.hash_join_build(bt)
+    sorted_keys, order = kref.hash_join_build_ref(bt)
+    got = hj.hash_join_probe(table, pt)
+    err = join_err(got, kref.hash_join_ref(bt, pt), kops.sort_join(b, p),
+                   what)
+    total = len(got[0])
+    del got
+    ms = cuda_ms(lambda: hj.hash_join_probe(table, pt), reps=50)
+    plain = cuda_ms(
+        lambda: kref.hash_join_probe_ref(sorted_keys, order, pt), reps=20)
+    device = profile_calls(f"hash_join_probe at {what}",
+                           lambda: hj.hash_join_probe(table, pt), calls=20)
+    if split:
+        before, after, host = probe_window_split(hj, table, pt)
+        print(f"   hash_join_probe at {what}: window up to the total's copy "
+              f"{before:.4f} ms, from there to its end (the copy, the host's "
+              f"round trip, the emit) {after:.4f} ms, of which the host's "
+              f"work from the wait's return to the call's {host:.4f} ms "
+              f"(host clock)", flush=True)
+    m = len(p)
+    # read the probe keys and, once each, the build rows that match (their
+    # int32 ids in `grouped`); write the int64 pairs
+    matched = int(np.isin(b, p).sum())
+    bnd, by = bound_ms(nbytes=8 * m + 4 * matched + 16 * total, ops=m)
+    shape = (f"build {len(b)} x probe {m} keys, {total} pairs, "
+             f"{matched} build rows matched")
+    print(f"   hash_join_probe at {what} ({shape}): window {ms:.4f} ms, "
+          f"kernels' device time {device:.4f} ms, plain {plain:.4f} ms, "
+          f"bound {bnd:.5f} ms ({by})", flush=True)
+    return {"ms": ms, "device_ms": device, "plain_ms": plain, "bound_ms": bnd,
+            "bound_by": by, "err": err, "shape": shape}
+
+
+def probe_window_split(hj, table, pt, reps: int = 50):
+    """The probe's ``cuda_ms`` window cut where its one host wait begins:
+    an event recorded just before the total's copy, on the device's clock;
+    and, on the host's clock, the time from the wait's return to the
+    call's.  Medians of the three, in ms."""
+    orig = hj._read_total
+    marks, woke, done = [], [], []
+
+    def marked(word, stream):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(stream)
+        marks.append(ev)
+        total = orig(word, stream)
+        woke.append(time.perf_counter())
+        return total
+
+    def call():
+        hj.hash_join_probe(table, pt)
+        done.append(time.perf_counter())
+
+    hj._read_total = marked
+    try:
+        pairs = windows(call, reps)
+    finally:
+        hj._read_total = orig
+    mids = marks[-reps:]
+    host = [d - w for w, d in zip(woke[-reps:], done[-reps:])]
+    return (float(np.median([s.elapsed_time(m) for (s, _), m
+                             in zip(pairs, mids)])),
+            float(np.median([m.elapsed_time(e) for (_, e), m
+                             in zip(pairs, mids)])),
+            float(np.median(host)) * 1e3)
 
 
 def tie_rows(dev):
@@ -553,10 +676,12 @@ def tie_rows(dev):
 
 def check_neighbor(dev, na, kref):
     """Mean bitwise and mode exactly equal to the plain versions on ragged
-    shapes and on tie rows; returns the two largest |kernel - plain|."""
+    shapes and on tie rows, the mode in both forms (values, and ids into
+    targets); returns the two largest |kernel - plain|."""
     rng = np.random.default_rng(3)
     mean_err, mode_err = 0.0, 0
-    for b, k in ((1, 1), (5, 4), (128, 5), (300, 9), (1024, 5), (4097, 13)):
+    for b, k in ((1, 1), (5, 4), (128, 5), (300, 9), (1024, 5), (4097, 13),
+                 (70, 17), (129, 40)):
         vals = torch.from_numpy(
             rng.normal(0.0, 100.0, (b, k)).astype(np.float32)).to(dev)
         got, want = na.neighbor_mean(vals), kref.neighbor_mean_ref(vals)
@@ -572,15 +697,30 @@ def check_neighbor(dev, na, kref):
             raise AssertionError(f"neighbor_mode differs from its plain "
                                  f"version at ({b}, {k})")
         mode_err = max(mode_err, int((got - want).abs().max()))
-    got = na.neighbor_mode(tie_rows(dev)).cpu().tolist()
-    if got != [2, 1, -3, 1]:
-        raise AssertionError(f"neighbor_mode tie rule: got {got}")
+        targets = torch.from_numpy(
+            labels[rng.integers(0, len(labels), 3 * b + 7)]).to(dev)
+        ids = torch.from_numpy(rng.integers(0, len(targets), (b, k))).to(dev)
+        got = na.neighbor_mode(ids, targets)
+        want = kref.neighbor_mode_ref(targets[ids])
+        if not torch.equal(got, want):
+            raise AssertionError(f"neighbor_mode's ids form differs from its "
+                                 f"plain version at ({b}, {k})")
+        mode_err = max(mode_err, int((got - want).abs().max()))
+    ties = tie_rows(dev)
+    got = na.neighbor_mode(ties).cpu().tolist()
+    flat = ties.reshape(-1)
+    ids = torch.arange(flat.numel(), device=dev).reshape(ties.shape)
+    got_ids = na.neighbor_mode(ids, flat).cpu().tolist()
+    if got != [2, 1, -3, 1] or got_ids != got:
+        raise AssertionError(f"neighbor_mode tie rule: got {got}, through "
+                             f"ids {got_ids}")
     print("   neighbor_mean bitwise == plain, neighbor_mode == plain at the "
-          "ragged shapes; mode ties go to the smallest value", flush=True)
+          "ragged shapes, on values and through ids; mode ties go to the "
+          "smallest value", flush=True)
     return mean_err, mode_err
 
 
-def time_neighbor(na, kref, mean_vals, mode_vals):
+def time_neighbor(na, kref, mean_vals, mode_ids, mode_targets):
     b, k = mean_vals.shape
     mean_err = float((na.neighbor_mean(mean_vals)
                       - kref.neighbor_mean_ref(mean_vals)).abs().max())
@@ -593,20 +733,63 @@ def time_neighbor(na, kref, mean_vals, mode_vals):
     }
     mean["bound_ms"], mean["bound_by"] = bound_ms(nbytes=4 * b * k + 4 * b,
                                                   ops=b * k)
-    b, k = mode_vals.shape
-    mode_err = int((na.neighbor_mode(mode_vals)
-                    - kref.neighbor_mode_ref(mode_vals)).abs().max())
-    mode = {
-        "ms": cuda_ms(lambda: na.neighbor_mode(mode_vals), reps=200),
-        "plain_ms": cuda_ms(lambda: kref.neighbor_mode_ref(mode_vals),
-                            reps=200),
-        # timed only: torch.mode promises no order among tied values
-        "library_ms": cuda_ms(lambda: torch.mode(mode_vals, dim=1), reps=200),
-        "err": mode_err, "shape": f"({b}, {k}) int64",
-    }
-    mode["bound_ms"], mode["bound_by"] = bound_ms(nbytes=8 * b * k + 8 * b,
-                                                  ops=b * k * k)
-    return mean, mode
+    return mean, time_mode(na, kref, mode_ids, mode_targets)
+
+
+def time_mode(na, kref, ids, targets, fused: bool = True):
+    """The mode at one batch's neighbour ids: the fused form (the kernel
+    gathers the targets), the pair it replaced (the ``targets[ids]`` gather,
+    then the values form), the plain version, and ``torch.mode`` on the
+    gathered values (timed only: it promises no order among tied values).
+    ``fused``: time the fused form (``--kernels`` runs older checkouts,
+    which have none)."""
+    vals = targets[ids]
+    b, k = ids.shape
+    want = kref.neighbor_mode_ref(vals)
+
+    def pair():
+        return na.neighbor_mode(targets[ids])
+
+    err = int((pair() - want).abs().max())
+    t = {"pair_ms": cuda_ms(pair, reps=200),
+         "plain_ms": cuda_ms(lambda: kref.neighbor_mode_ref(targets[ids]),
+                             reps=200),
+         "library_ms": cuda_ms(lambda: torch.mode(vals, dim=1), reps=200),
+         "shape": f"({b}, {k}) int64 ids into {len(targets)} targets"}
+    t["pair_device_ms"] = profile_calls("the gather + neighbor_mode pair",
+                                        pair, calls=50)
+    t["ms"] = t["device_ms"] = None
+    if fused:
+        got = na.neighbor_mode(ids, targets)
+        if not torch.equal(got, want):
+            raise AssertionError("neighbor_mode's ids form differs from its "
+                                 "plain version at the main path's ids")
+        err = max(err, int((got - want).abs().max()))
+        t["ms"] = cuda_ms(lambda: na.neighbor_mode(ids, targets), reps=200)
+        t["device_ms"] = profile_calls(
+            "neighbor_mode (ids form)", lambda: na.neighbor_mode(ids, targets),
+            calls=50)
+    t["err"] = err
+    # read the ids and, once each, the targets they name; write the modes
+    distinct = int(torch.unique(ids).numel())
+    t["shape"] += f", {distinct} distinct"
+    t["bound_ms"], t["bound_by"] = bound_ms(
+        nbytes=8 * b * k + 8 * distinct + 8 * b, ops=b * k * k)
+    fused_ms = "not in this checkout" if t["ms"] is None else \
+        f"{t['ms']:.4f} ms (device {t['device_ms']:.4f})"
+    print(f"   neighbor_mode at {t['shape']}: fused {fused_ms}, gather + "
+          f"values form {t['pair_ms']:.4f} ms (device "
+          f"{t['pair_device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, "
+          f"torch.mode {t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} "
+          f"ms ({t['bound_by']})", flush=True)
+    return t
+
+
+def floor_ms(build) -> float:
+    """``cuda_ms`` of an empty kernel: the floor of one launch."""
+    lib = build.library()
+    return cuda_ms(lambda: lib.quipt_noop(
+        torch.cuda.current_stream().cuda_stream), reps=200)
 
 
 # segment reduce: the main path's shape (wifi q2 at full scale groups
@@ -694,9 +877,9 @@ def check_segment(dev, so, kref, kops) -> float:
     return err
 
 
-def profile_calls(label: str, fn, calls: int) -> None:
-    """Device time per call of each kernel ``fn`` launches, from
-    ``torch.profiler`` over ``calls`` calls."""
+def profile_calls(label: str, fn, calls: int) -> float:
+    """Device time per call of each kernel (and copy) ``fn`` launches, from
+    ``torch.profiler`` over ``calls`` calls, printed; returns their sum."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -719,6 +902,7 @@ def profile_calls(label: str, fn, calls: int) -> None:
                       for e in sorted(rows, key=dev_us, reverse=True))
     print(f"   {label}, device ms per call by kernel: {parts or 'none'}",
           flush=True)
+    return sum(dev_us(e) for e in rows) / calls / 1e3
 
 
 def time_segment(dev, so, kref, kops, build, vals: torch.Tensor,
@@ -1191,11 +1375,14 @@ class Launches:
 @contextlib.contextmanager
 def recording(kops):
     """Keep, for the kernel-time phase, the main path's calls into the
-    kernels: the bloom probes' sizes, every join's sizes and the largest
-    join's keys, the largest mean and mode inputs, and every segment
-    reduction's size with the largest one's values and ids."""
-    rec = {"bloom": Counter(), "join": [], "join_keys": None, "mean": None,
-           "mode": None, "segment": [], "segment_args": None}
+    kernels: the bloom probes' sizes, every join's sizes and the keys of the
+    largest join by build keys and by probe keys, the largest mean input,
+    the largest mode call's ids and targets (and a count of mode calls
+    handed values instead of ids: a gather outside the kernel), and every
+    segment reduction's size with the largest one's values and ids."""
+    rec = {"bloom": Counter(), "join": [], "join_keys": None,
+           "join_probe_keys": None, "mean": None, "mode": None,
+           "mode_values_calls": 0, "segment": [], "segment_args": None}
     names = ("_bloom_probe_cuda", "_hash_join_cuda", "_neighbor_mean_cuda",
              "_neighbor_mode_cuda", "_segment_reduce_cuda")
     orig = {n: getattr(kops, n) for n in names}
@@ -1206,17 +1393,23 @@ def recording(kops):
 
     def join(b, p):
         rec["join"].append((b.shape[0], p.shape[0]))
-        big = rec["join_keys"]
-        if big is None or b.shape[0] > len(big[0]):
-            rec["join_keys"] = (b.cpu().numpy(), p.cpu().numpy())
+        for key, axis in (("join_keys", 0), ("join_probe_keys", 1)):
+            big = rec[key]
+            if big is None or (b, p)[axis].shape[0] > len(big[axis]):
+                rec[key] = (b.cpu().numpy(), p.cpu().numpy())
         return orig["_hash_join_cuda"](b, p)
 
-    def agg(kind, name):
-        def call(vals):
-            if rec[kind] is None or vals.numel() > rec[kind].numel():
-                rec[kind] = vals.clone()
-            return orig[name](vals)
-        return call
+    def mean(vals):
+        if rec["mean"] is None or vals.numel() > rec["mean"].numel():
+            rec["mean"] = vals.clone()
+        return orig["_neighbor_mean_cuda"](vals)
+
+    def mode(vals, targets=None):
+        if targets is None:
+            rec["mode_values_calls"] += 1
+        elif rec["mode"] is None or vals.numel() > rec["mode"][0].numel():
+            rec["mode"] = (vals.clone(), targets)
+        return orig["_neighbor_mode_cuda"](vals, targets)
 
     def segment(vals, seg, num_segments, op):
         rec["segment"].append((seg.shape[0], num_segments, op))
@@ -1227,8 +1420,7 @@ def recording(kops):
         return orig["_segment_reduce_cuda"](vals, seg, num_segments, op)
 
     patched = {"_bloom_probe_cuda": bloom, "_hash_join_cuda": join,
-               "_neighbor_mean_cuda": agg("mean", "_neighbor_mean_cuda"),
-               "_neighbor_mode_cuda": agg("mode", "_neighbor_mode_cuda"),
+               "_neighbor_mean_cuda": mean, "_neighbor_mode_cuda": mode,
                "_segment_reduce_cuda": segment}
     for n, fn in patched.items():
         setattr(kops, n, fn)
@@ -1633,6 +1825,19 @@ def main() -> int:
             t, _ = time_join(dev, hj, kref, kops, *main_like_join_keys())
             print(f"   hash_join_build at {t['shape']}: {t['ms']:.4f} ms",
                   flush=True)
+            split = hasattr(hj, "_read_total")
+            time_probe(dev, hj, kref, kops, *main_like_probe_keys(),
+                       "the largest probe's shape", split=split)
+            time_probe(dev, hj, kref, kops, *spine_like_keys(),
+                       "the wifi spine's shape", split=split)
+            fused = "targets" in inspect.signature(
+                na.neighbor_mode).parameters
+            time_mode(na, kref, *knn_mode_inputs(wifi, "wifi", "wifi.lid",
+                                                 dev, knn_mod, kops),
+                      fused=fused)
+            if hasattr(build.library(), "quipt_noop"):
+                print(f"   empty-kernel floor: {floor_ms(build):.4f} ms",
+                      flush=True)
         print(card)
         return 0
 
@@ -1757,7 +1962,16 @@ def main() -> int:
         dist_t = time_distance(kd, kref, *main_shapes["wifi"])
         knn_t = time_knn(kd, kref, kops, *main_shapes["wifi"])
         build_t, probe_t = time_join(dev, hj, kref, kops, *rec["join_keys"])
-        mean_t, mode_t = time_neighbor(na, kref, rec["mean"], rec["mode"])
+        time_probe(dev, hj, kref, kops, *rec["join_probe_keys"],
+                   "the largest probe")
+        time_probe(dev, hj, kref, kops, *spine_like_keys(),
+                   "the wifi spine's shape")
+        if rec["mode_values_calls"]:
+            raise AssertionError(f"{rec['mode_values_calls']} mode calls on "
+                                 f"the main paths gathered their values "
+                                 f"outside the kernel")
+        mean_t, mode_t = time_neighbor(na, kref, rec["mean"], *rec["mode"])
+        floor = floor_ms(build)
         calls = rec["segment"]
         print(f"   main-path segment reductions: {len(calls)} calls "
               f"{sorted(set(calls), reverse=True)[:8]}", flush=True)
@@ -1836,6 +2050,8 @@ def main() -> int:
                      max(attn_check_err[torch.float32], attn_f32_t["err"]),
                      attn_f32_t["library_ms"]),
     ]
+    print(f"   empty-kernel floor: {floor:.4f} ms; kernel ms / floor: "
+          + ", ".join(f"{e['name']} {e['ms'] / floor:.1f}" for e in kernels))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

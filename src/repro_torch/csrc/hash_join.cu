@@ -34,20 +34,34 @@
 //             range comes out ascending -- the order an atomicAdd cursor
 //             would lose -- and a key with many copies costs no more than
 //             many keys with one.
-//   probe  5. join_probe_kernel, one thread per probe key: find the key's
-//             slot (expected O(1) steps at load factor <= 1/2), write its
-//             match count.
-//          6. (host glue) an inclusive scan of the counts gives each probe
-//             its range of the output.
-//          7. join_emit_kernel, one thread per output pair: a binary search
-//             of the scanned counts finds the pair's probe, which copies
-//             one build row from its key's range.  A probe with 831
-//             matches is spread over 831 threads.
+//   probe  5. join_probe_scan_kernel, one thread per probe key: find the
+//             key's slot (expected O(1) steps at load factor <= 1/2) and
+//             its match count (the difference of neighbouring slot
+//             starts); a block-wide scan of the counts in shared
+//             memory, then a single-pass decoupled look-back across blocks
+//             (each block's status word holds a flag and its aggregate or
+//             inclusive prefix, in one 64-bit word) gives each probe its
+//             end in the output and the last block the grand total.  Each
+//             probe also gets where its key's rows start in `grouped`.
+//          6. (host) the one wait of the call: the 8-byte total, copied
+//             to pinned host memory, sizes the outputs.
+//          7. join_emit_kernel, a merge-path emit: the probes' ends and
+//             the output pairs, merged, are cut into tiles of kEmitTile
+//             items; one search along each tile's diagonal (by the whole
+//             block, kThreads points a round) finds its first probe and
+//             pair, the tile's probe ends and row starts go to
+//             shared memory, and each pair finds its probe there and copies
+//             one build row from its key's contiguous range.  A tile holds
+//             at most kEmitTile probes, so runs of probes without a match
+//             cost no more than pairs, and a probe with 831 matches is
+//             spread over the tiles its pairs fall in.
 //
 // What bounds it on an H100: memory.  The pairs (16 bytes each) and the
 // keys (8 bytes each) are streamed once; the table's slots and the key
 // gathers are random accesses into arrays that fit the 50 MB L2 at the
-// main path's sizes.  The first place step had every owner block read the
+// main path's sizes.  At the main path's probe sizes (4,000 keys) the
+// probe is a few microseconds of device work: what the caller waits for
+// is the launches and the one host round trip for the total.  The first place step had every owner block read the
 // slot of every build row (about 260 blocks x 1M rows from L2 at 1M build
 // rows: 0.54 of the build's 0.64 ms); the partition reads each row a
 // fixed number of times, however many owners there are.
@@ -225,52 +239,189 @@ join_place_kernel(const int32_t* __restrict__ perm,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-join_probe_kernel(const int64_t* __restrict__ build_keys,
-                  const int32_t* __restrict__ slot_row,
-                  const int32_t* __restrict__ slot_count,
-                  const int64_t* __restrict__ probe_keys, int64_t m,
-                  int log2cap, int32_t* __restrict__ probe_slot,
-                  int64_t* __restrict__ counts) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  const int64_t key = probe_keys[i];
-  const uint64_t mask = (1ull << log2cap) - 1;
-  uint64_t s = home_slot(key, log2cap);
-  int32_t found = -1;
-  int64_t count = 0;
-  while (true) {
-    const int32_t cur = slot_row[s];
-    if (cur == 0) break;  // an empty slot ends the chain: no match
-    if (build_keys[cur - 1] == key) {
-      found = static_cast<int32_t>(s);
-      count = slot_count[s];
-      break;
-    }
-    s = (s + 1) & mask;
+// Status words of the probe's look-back: the flag in the top two bits,
+// the block's aggregate or inclusive prefix in the low 62.
+constexpr uint64_t kFlagAggregate = 1ull << 62;
+constexpr uint64_t kFlagPrefix = 2ull << 62;
+constexpr uint64_t kValueMask = (1ull << 62) - 1;
+constexpr int kEmitPer = 4;  // merged items a thread covers per tile
+constexpr int kEmitTile = kThreads * kEmitPer;
+
+// The probe's int64 words, one buffer (quipt_join_probe_words): the
+// scratch, zeroed on the stream before the probe — [0] the grand total,
+// [1] the next block's ticket, [2 + b] block b's status word — then each
+// probe's end (m words), then its key's start in `grouped` (m words).
+constexpr int kScratchTotal = 0;
+constexpr int kScratchTicket = 1;
+constexpr int kScratchStatus = 2;
+
+inline int64_t probe_blocks(int64_t m) { return (m + kThreads - 1) / kThreads; }
+inline int64_t probe_scratch_words(int64_t m) {
+  return kScratchStatus + probe_blocks(m);
+}
+
+__device__ __forceinline__ int64_t warp_inclusive_sum(int64_t v, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int64_t t = __shfl_up_sync(kFull, v, d);
+    if (lane >= d) v += t;
   }
-  probe_slot[i] = found;
-  counts[i] = count;
+  return v;
+}
+
+// Blocks take tickets in the order they start, so a block only waits on
+// blocks that are already running: the look-back cannot deadlock.  A
+// hit's count is the difference of two neighbouring slot starts (one
+// sector, no read of slot_count).
+__global__ void __launch_bounds__(kThreads)
+join_probe_scan_kernel(const int64_t* __restrict__ build_keys, int64_t n,
+                       const int32_t* __restrict__ slot_row,
+                       const int64_t* __restrict__ slot_start,
+                       const int64_t* __restrict__ probe_keys, int64_t m,
+                       int log2cap, int64_t* __restrict__ ends,
+                       int64_t* __restrict__ src,
+                       unsigned long long* scratch) {
+  __shared__ int64_t warp_sum[kWarps];
+  __shared__ int64_t block_prefix;
+  __shared__ int64_t ticket;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0)
+    ticket = static_cast<int64_t>(atomicAdd(scratch + kScratchTicket, 1ull));
+  __syncthreads();
+  const int64_t block = ticket;
+  const int64_t i = block * kThreads + threadIdx.x;
+  int64_t count = 0, start = 0;
+  if (i < m) {
+    const int64_t key = probe_keys[i];
+    const uint64_t mask = (1ull << log2cap) - 1;
+    uint64_t s = home_slot(key, log2cap);
+    while (true) {
+      const int32_t cur = slot_row[s];
+      if (cur == 0) break;  // an empty slot ends the chain: no match
+      if (build_keys[cur - 1] == key) {
+        start = slot_start[s];
+        count = (s == mask ? n : slot_start[s + 1]) - start;
+        break;
+      }
+      s = (s + 1) & mask;
+    }
+  }
+  // the block's inclusive scan: within each warp, then over the warps
+  const int64_t incl = warp_inclusive_sum(count, lane);
+  if (lane == 31) warp_sum[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int64_t w = lane < kWarps ? warp_sum[lane] : 0;
+    const int64_t wincl = warp_inclusive_sum(w, lane);
+    if (lane < kWarps) warp_sum[lane] = wincl - w;  // exclusive
+    const int64_t aggregate = __shfl_sync(kFull, wincl, kWarps - 1);
+    volatile unsigned long long* status = scratch + kScratchStatus;
+    int64_t prefix = 0;
+    if (block == 0) {
+      if (lane == 0)
+        status[0] = kFlagPrefix | static_cast<uint64_t>(aggregate);
+    } else {
+      if (lane == 0)
+        status[block] = kFlagAggregate | static_cast<uint64_t>(aggregate);
+      // look back 32 predecessors at a time, nearest in lane 0, until one
+      // has published its inclusive prefix
+      for (int64_t base = block - 1;; base -= 32) {
+        const int64_t pred = base - lane;
+        uint64_t word = pred >= 0 ? status[pred] : kFlagPrefix;
+        while (__any_sync(kFull, (word >> 62) == 0)) {
+          if ((word >> 62) == 0) {
+            __nanosleep(20);
+            word = status[pred];
+          }
+        }
+        const unsigned done = __ballot_sync(kFull, (word >> 62) == 2);
+        const int stop = done ? __ffs(done) - 1 : 31;
+        int64_t v = lane <= stop ? static_cast<int64_t>(word & kValueMask) : 0;
+#pragma unroll
+        for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
+        prefix += v;
+        if (done) break;
+      }
+      if (lane == 0)
+        status[block] = kFlagPrefix | static_cast<uint64_t>(prefix + aggregate);
+    }
+    if (lane == 0) {
+      block_prefix = prefix;
+      if (block == gridDim.x - 1)
+        scratch[kScratchTotal] = static_cast<uint64_t>(prefix + aggregate);
+    }
+  }
+  __syncthreads();
+  if (i < m) {
+    ends[i] = block_prefix + warp_sum[warp] + incl;
+    src[i] = start;
+  }
+}
+
+// The merge path of the probes' ends (ends[0..m)) and the pairs (0..total):
+// the number of probe ends among the first d merged items, a pair p going
+// before an end e when p < e.  With P(a) = (ends[a] <= d - 1 - a), which
+// holds below the split and fails from it on, the split is the first a in
+// [lo, hi] where P fails (hi if none).  The whole block searches: each
+// round tests kThreads points spread over the range and keeps the gap
+// between the last that holds and the first that fails, so a range of a
+// million probes takes three rounds of one load each.  Called by every
+// thread of the block with the same arguments.
+__device__ int64_t merge_split(const int64_t* __restrict__ ends, int64_t d,
+                               int64_t lo, int64_t hi) {
+  while (lo < hi) {
+    const int64_t span = hi - lo;
+    const bool exact = span <= kThreads;
+    const int64_t x = exact ? lo + threadIdx.x
+                            : lo + span * threadIdx.x / kThreads;
+    const bool holds = (!exact || threadIdx.x < span) && ends[x] <= d - 1 - x;
+    const int held = __syncthreads_count(holds);
+    if (exact) return lo + held;
+    hi = lo + span * held / kThreads;  // the first point that failed
+    if (held > 0) lo += span * (held - 1) / kThreads + 1;
+  }
+  return lo;
 }
 
 __global__ void __launch_bounds__(kThreads)
-join_emit_kernel(const int64_t* __restrict__ ends, int64_t m,
-                 const int32_t* __restrict__ probe_slot,
-                 const int64_t* __restrict__ slot_start,
+join_emit_kernel(const int64_t* __restrict__ ends,
+                 const int64_t* __restrict__ src, int64_t m,
                  const int32_t* __restrict__ grouped, int64_t total,
                  int64_t* __restrict__ out_probe,
                  int64_t* __restrict__ out_build) {
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= total) return;
-  // the probe whose range holds p: the first i with ends[i] > p
-  int64_t lo = 0, hi = m - 1;
-  while (lo < hi) {
-    const int64_t mid = lo + ((hi - lo) >> 1);
-    if (ends[mid] > p) hi = mid; else lo = mid + 1;
+  __shared__ int64_t tile_end[kEmitTile + 1];
+  __shared__ int64_t tile_off[kEmitTile + 1];  // row start - first pair
+  const int64_t d0 = static_cast<int64_t>(blockIdx.x) * kEmitTile;
+  const int64_t d1 = d0 + kEmitTile < m + total ? d0 + kEmitTile : m + total;
+  const int64_t a0 = merge_split(ends, d0, d0 > total ? d0 - total : 0,
+                                 d0 < m ? d0 : m);
+  // the next split lies at most a tile further on
+  const int64_t lo1 = d1 - total > a0 ? d1 - total : a0;
+  const int64_t hi1 = a0 + (d1 - d0) < m ? a0 + (d1 - d0) : m;
+  const int64_t a1 = merge_split(ends, d1, lo1, hi1);
+  const int64_t p0 = d0 - a0, p1 = d1 - a1;
+  // the tile's pairs belong to probes a0 .. min(a1, m - 1)
+  const int probes = static_cast<int>((a1 < m ? a1 : m - 1) - a0 + 1);
+  for (int j = threadIdx.x; j < probes; j += kThreads) {
+    const int64_t i = a0 + j;
+    tile_end[j] = ends[i];
+    tile_off[j] = src[i] - (i == 0 ? 0 : ends[i - 1]);
   }
-  const int64_t first = lo == 0 ? 0 : ends[lo - 1];
-  out_probe[p] = lo;
-  out_build[p] = grouped[slot_start[probe_slot[lo]] + (p - first)];
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < kEmitPer; ++u) {
+    const int64_t p = p0 + u * kThreads + threadIdx.x;
+    if (p < p1) {
+      int lo = 0, hi = probes - 1;  // the first probe whose end is past p
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (tile_end[mid] > p) hi = mid; else lo = mid + 1;
+      }
+      out_probe[p] = a0 + lo;
+      out_build[p] = grouped[tile_off[lo] + p];
+    }
+  }
 }
 
 inline unsigned blocks_for(int64_t n) {
@@ -315,31 +466,53 @@ extern "C" int quipt_join_place(const void* perm, const void* owner_start,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int quipt_join_probe(const void* build_keys, const void* slot_row,
-                                const void* slot_count, const void* probe_keys,
-                                int64_t m, int log2cap, void* probe_slot,
-                                void* counts, void* stream) {
+// The int64 words a probe of m keys needs (its `words` buffer).
+extern "C" int64_t quipt_join_probe_words(int64_t m) {
+  return probe_scratch_words(m) + 2 * m;
+}
+
+// The merged items (probe ends and pairs) an emit block covers.
+extern "C" int quipt_join_emit_tile() { return kEmitTile; }
+
+// words: quipt_join_probe_words(m) int64 words (n_words, checked), laid out
+// as above; its scratch is zeroed here on `stream`, and words[0] gets the
+// number of pairs.  n: the build rows (the end of the last slot's range).
+extern "C" int quipt_join_probe(const void* build_keys, int64_t n,
+                                const void* slot_row, const void* slot_start,
+                                const void* probe_keys, int64_t m, int log2cap,
+                                void* words, int64_t n_words, void* stream) {
   if (m == 0) return 0;
-  join_probe_kernel<<<blocks_for(m), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(build_keys),
+  const int64_t blocks = probe_blocks(m);
+  if (blocks > INT32_MAX || n_words != quipt_join_probe_words(m))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t scratch_words = probe_scratch_words(m);
+  const cudaError_t zeroed =
+      cudaMemsetAsync(words, 0, scratch_words * sizeof(int64_t), s);
+  if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
+  int64_t* ends = static_cast<int64_t*>(words) + scratch_words;
+  join_probe_scan_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      static_cast<const int64_t*>(build_keys), n,
       static_cast<const int32_t*>(slot_row),
-      static_cast<const int32_t*>(slot_count),
-      static_cast<const int64_t*>(probe_keys), m, log2cap,
-      static_cast<int32_t*>(probe_slot), static_cast<int64_t*>(counts));
+      static_cast<const int64_t*>(slot_start),
+      static_cast<const int64_t*>(probe_keys), m, log2cap, ends, ends + m,
+      static_cast<unsigned long long*>(words));
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int quipt_join_emit(const void* ends, int64_t m,
-                               const void* probe_slot, const void* slot_start,
+// ceil((m + total) / 1,024) blocks, one tile of the merge path each.
+// words: the probe's buffer, after quipt_join_probe.
+extern "C" int quipt_join_emit(const void* words, int64_t m,
                                const void* grouped, int64_t total,
                                void* out_probe, void* out_build, void* stream) {
   if (total == 0) return 0;
-  join_emit_kernel<<<blocks_for(total), kThreads, 0,
+  const int64_t* ends =
+      static_cast<const int64_t*>(words) + probe_scratch_words(m);
+  const int64_t tiles = (m + total + kEmitTile - 1) / kEmitTile;
+  if (tiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  join_emit_kernel<<<static_cast<unsigned>(tiles), kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(ends), m,
-      static_cast<const int32_t*>(probe_slot),
-      static_cast<const int64_t*>(slot_start),
+      ends, ends + m, m,
       static_cast<const int32_t*>(grouped), total,
       static_cast<int64_t*>(out_probe), static_cast<int64_t*>(out_build));
   return static_cast<int>(cudaGetLastError());

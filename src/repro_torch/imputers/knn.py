@@ -14,8 +14,10 @@ The fitted matrices live on the imputer's device; per attribute the
 reference rows and kept columns are gathered there once.  With the numpy
 aggregation each batch moves its query row ids up and its ``(b, k)``
 neighbour ids down; with a device aggregation the reference rows' targets
-stay on the device too, the neighbours are gathered there, and only the
-``(b,)`` imputed values come down.
+stay on the device too and only the ``(b,)`` imputed values come down:
+the neighbour ids and the targets go to ``neighbor_aggregate``, whose
+``cuda`` mode gathers the values inside its kernel (the mean and the
+``ref`` member gather first).
 """
 
 from __future__ import annotations
@@ -132,10 +134,10 @@ class KnnImputer(Imputer):
             q = self._feat[idx][:, keep].contiguous()
             qm = self._mask[idx][:, keep].contiguous()
             _d, nn = kops.masked_knn(q, qm, r, rm, k=k, impl=self.impl)
-            # (b, k) raw target values, on the host for the numpy member
-            neigh = (tgt[nn.to(tgt.device)] if agg != "numpy"
-                     else tgt[nn.cpu().numpy()])
+            # the (b, k) neighbour ids and the reference rows' targets (on
+            # the host for the numpy member): the cuda mode gathers inside
+            # its kernel, every other member first
             out[lo : lo + len(idx)] = kops.neighbor_aggregate(
-                neigh, categorical=is_int, impl=agg
+                nn, categorical=is_int, impl=agg, targets=tgt
             )
         return out

@@ -37,7 +37,8 @@ NVCC_FLAGS = (
 _c_void_p, _c_int, _c_int64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _c_float = ctypes.c_float
 
-# C entry points: name -> argtypes (every one returns cudaGetLastError())
+# C entry points: name -> argtypes (every one returns cudaGetLastError(),
+# but the sizes in _SIZES, which return an int64)
 _SIGNATURES = {
     "quipt_bloom_probe": [_c_void_p, _c_void_p, _c_void_p, _c_int64,
                           _c_int, _c_int, _c_void_p],
@@ -51,14 +52,18 @@ _SIGNATURES = {
     "quipt_join_place": [_c_void_p, _c_void_p, _c_void_p, _c_int64,
                          _c_void_p, _c_void_p, _c_void_p, _c_int64,
                          _c_void_p],
-    "quipt_join_probe": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                         _c_int64, _c_int, _c_void_p, _c_void_p, _c_void_p],
-    "quipt_join_emit": [_c_void_p, _c_int64, _c_void_p, _c_void_p, _c_void_p,
-                        _c_int64, _c_void_p, _c_void_p, _c_void_p],
+    "quipt_join_probe_words": [_c_int64],
+    "quipt_join_emit_tile": [],
+    "quipt_join_probe": [_c_void_p, _c_int64, _c_void_p, _c_void_p,
+                         _c_void_p, _c_int64, _c_int, _c_void_p, _c_int64,
+                         _c_void_p],
+    "quipt_join_emit": [_c_void_p, _c_int64, _c_void_p, _c_int64,
+                        _c_void_p, _c_void_p, _c_void_p],
     "quipt_neighbor_mean": [_c_void_p, _c_int64, _c_int, _c_void_p,
                             _c_void_p],
-    "quipt_neighbor_mode": [_c_void_p, _c_int64, _c_int, _c_void_p,
-                            _c_void_p],
+    "quipt_neighbor_mode": [_c_void_p, _c_void_p, _c_int64, _c_int,
+                            _c_void_p, _c_void_p],
+    "quipt_noop": [_c_void_p],
     "quipt_segment_count": [_c_void_p, _c_int64, _c_int64, _c_int64,
                             _c_void_p, _c_void_p, _c_void_p, _c_void_p],
     "quipt_segment_scan": [_c_void_p, _c_int64, _c_int64, _c_void_p,
@@ -76,6 +81,7 @@ _SIGNATURES = {
                                  _c_int, _c_int, _c_int, _c_int, _c_int,
                                  _c_int, _c_int, _c_float, _c_void_p],
 }
+_SIZES = {"quipt_join_probe_words"}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -161,7 +167,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _c_int64 if name in _SIZES else _c_int
         _lib = lib
         return lib
 

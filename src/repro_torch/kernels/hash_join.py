@@ -9,7 +9,12 @@ the order of ``core.triggers.multi_match``, exactly, with no 64-bit check
 left for the host.  The grouping partitions the rows by owner (a range of
 ``OWNER_SLOTS`` slots) with the segment kernels
 (``segment_ops.group_rows``), then one block per owner places its own
-rows; ``ref.hash_join_group_ref`` emulates the steps on the CPU.
+rows; ``ref.hash_join_group_ref`` emulates the steps on the CPU.  The
+probe finds and scans the match counts in one kernel, waits once for the
+total (an 8-byte copy into pinned memory and an event synchronise), and
+emits the pairs along the merge path of the probes' ends and the pairs,
+``EMIT_TILE`` items a block; ``ref.hash_join_emit_tiles_ref`` emulates the
+emit.
 
 A CUDA tensor launches the kernels on the current stream; a CPU tensor
 takes the plain torch sort-join (``ref.hash_join_build_ref`` /
@@ -18,6 +23,7 @@ takes the plain torch sort-join (``ref.hash_join_build_ref`` /
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Tuple, Union
 
 import torch
@@ -30,7 +36,7 @@ __all__ = ["JoinTable", "OWNER_SLOTS", "build_launches", "hash_join",
 
 #: build (insert + place) launches since the counter was last set to 0
 build_launches = 0
-#: probe (probe + emit) launches since the counter was last set to 0
+#: probe (probe-and-scan + emit) launches since the counter was last set to 0
 probe_launches = 0
 
 MIN_LOG2CAP = 7  # 128 slots
@@ -38,6 +44,13 @@ MAX_BUILD_ROWS = 1 << 30  # a slot index and a row id must fit int32
 #: slots a place block owns, its cursors in shared memory (the kernel's
 #: ``kOwnerSlots``)
 OWNER_SLOTS = 8064
+#: merged items (probe ends and pairs) an emit block covers (the kernel's
+#: ``kEmitTile``, which ``quipt_join_emit_tile`` returns), for the CPU
+#: emulation
+EMIT_TILE = 1024
+
+# the pinned host word each thread reads a probe's total into
+_pinned = threading.local()
 
 
 class JoinTable(NamedTuple):
@@ -119,6 +132,24 @@ def hash_join_build(build_keys: torch.Tensor
                      grouped)
 
 
+def _read_total(word: torch.Tensor, stream) -> int:
+    """The call's one host wait: ``word`` (one int64 on the card) copied
+    into this thread's pinned buffer on ``stream``, then an event
+    synchronise."""
+    key = word.device.index
+    held = getattr(_pinned, "by_device", None)
+    if held is None:
+        held = _pinned.by_device = {}
+    if key not in held:
+        host = torch.empty(1, dtype=torch.int64, pin_memory=True)
+        held[key] = (host, host.numpy(), torch.cuda.Event())
+    host, view, done = held[key]
+    host.copy_(word, non_blocking=True)
+    done.record(stream)
+    done.synchronize()
+    return int(view[0])
+
+
 def hash_join_probe(table, probe_keys: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every ``(probe_idx, build_idx)`` pair of ``probe_keys`` ``(m,)``
@@ -139,27 +170,31 @@ def hash_join_probe(table, probe_keys: torch.Tensor
     if m == 0 or table.keys.shape[0] == 0:
         z = torch.zeros(0, dtype=torch.int64, device=dev)
         return z, z.clone()
-    probe_slot = torch.empty(m, dtype=torch.int32, device=dev)
-    counts = torch.empty(m, dtype=torch.int64, device=dev)
     lib = build.library()
+    # one int64 buffer whose layout the kernels' entry points own: the
+    # total in word 0, then the look-back's scratch, each probe's end and
+    # its key's start in `grouped`
+    n_words = lib.quipt_join_probe_words(m)
+    words = torch.empty(n_words, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream()
         rc = lib.quipt_join_probe(table.keys.data_ptr(),
+                                  table.keys.shape[0],
                                   table.slot_row.data_ptr(),
-                                  table.slot_count.data_ptr(),
+                                  table.slot_start.data_ptr(),
                                   probe_keys.data_ptr(), m, table.log2cap,
-                                  probe_slot.data_ptr(), counts.data_ptr(),
-                                  stream)
+                                  words.data_ptr(), n_words,
+                                  stream.cuda_stream)
         build.check(rc, "hash_join_probe (probe)")
-        ends = torch.cumsum(counts, 0)
-        total = int(ends[-1])
+        # everything the emit needs but the total, ready before the wait:
+        # the window between the wait and the emit's launch is the host's
+        emit = lib.quipt_join_emit
+        args = (words.data_ptr(), m, table.grouped.data_ptr())
+        total = _read_total(words[:1], stream)
         out_probe = torch.empty(total, dtype=torch.int64, device=dev)
         out_build = torch.empty(total, dtype=torch.int64, device=dev)
-        rc = lib.quipt_join_emit(ends.data_ptr(), m, probe_slot.data_ptr(),
-                                 table.slot_start.data_ptr(),
-                                 table.grouped.data_ptr(), total,
-                                 out_probe.data_ptr(), out_build.data_ptr(),
-                                 stream)
+        rc = emit(*args, total, out_probe.data_ptr(), out_build.data_ptr(),
+                  stream.cuda_stream)
         build.check(rc, "hash_join_probe (emit)")
     probe_launches += 1
     return out_probe, out_build

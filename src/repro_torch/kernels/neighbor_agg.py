@@ -6,10 +6,14 @@ and ``neighbor_mode_pallas`` (``repro/kernels/neighbor_agg.py``).  A CUDA
 tensor launches the kernel on the current stream; a CPU tensor takes the
 plain torch version (``ref.neighbor_mean_ref`` / ``ref.neighbor_mode_ref``),
 since the kernels exist only on the card.  The mean matches its plain
-version bit for bit, the mode exactly.
+version bit for bit, the mode exactly.  The mode also takes the KNN's
+``(b, k)`` neighbour ids with the reference rows' targets and gathers the
+values itself (its plain version: ``ref.neighbor_mode_ref(targets[ids])``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -37,14 +41,13 @@ def _check(name: str, vals: torch.Tensor, dtype: torch.dtype) -> None:
         raise ValueError(f"{name} runs on cuda or cpu, not {vals.device}")
 
 
-def _launch(entry: str, vals: torch.Tensor, out: torch.Tensor) -> None:
+def _launch(entry: str, device: torch.device, *args) -> None:
     from repro_torch.kernels import build
 
     lib = build.library()
-    with torch.cuda.device(vals.device):
+    with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, entry)(vals.data_ptr(), vals.shape[0],
-                                 vals.shape[1], out.data_ptr(), stream)
+        rc = getattr(lib, entry)(*args, stream)
     build.check(rc, entry)
 
 
@@ -58,23 +61,39 @@ def neighbor_mean(vals: torch.Tensor) -> torch.Tensor:
     out = torch.empty(vals.shape[0], dtype=torch.float32, device=vals.device)
     if vals.shape[0] == 0:
         return out
-    _launch("quipt_neighbor_mean", vals, out)
+    _launch("quipt_neighbor_mean", vals.device, vals.data_ptr(),
+            vals.shape[0], vals.shape[1], out.data_ptr())
     mean_launches += 1
     return out
 
 
-def neighbor_mode(vals: torch.Tensor) -> torch.Tensor:
+def neighbor_mode(vals: torch.Tensor,
+                  targets: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``(b, k)`` int64 neighbour targets → ``(b,)`` int64 row modes, ties
-    to the smallest value."""
+    to the smallest value.  With ``targets`` ``(n_ref,)`` int64, ``vals``
+    holds the neighbours' ids into it, each in ``[0, n_ref)``, and the
+    kernel gathers the values."""
     global mode_launches
     _check("neighbor_mode", vals, torch.int64)
     if vals.shape[1] == 0:
         raise ValueError("neighbor_mode needs at least one column")
+    if targets is not None:
+        if targets.dtype != torch.int64 or targets.dim() != 1 \
+                or not targets.is_contiguous():
+            raise ValueError(f"neighbor_mode takes contiguous (n_ref,) int64 "
+                             f"targets, got {targets.dtype} "
+                             f"{tuple(targets.shape)}")
+        if targets.device != vals.device:
+            raise ValueError(f"ids on {vals.device}, targets on "
+                             f"{targets.device}")
     if vals.device.type == "cpu":
-        return _ref.neighbor_mode_ref(vals)
+        return _ref.neighbor_mode_ref(vals if targets is None
+                                      else targets[vals])
     out = torch.empty(vals.shape[0], dtype=torch.int64, device=vals.device)
     if vals.shape[0] == 0:
         return out
-    _launch("quipt_neighbor_mode", vals, out)
+    _launch("quipt_neighbor_mode", vals.device, vals.data_ptr(),
+            None if targets is None else targets.data_ptr(), vals.shape[0],
+            vals.shape[1], out.data_ptr())
     mode_launches += 1
     return out

@@ -274,11 +274,14 @@ _AGG_BUDGET = 1 << 24  # count entries per mode chunk (memory bound)
 
 
 def neighbor_aggregate(neigh, *, categorical: bool,
-                       impl: Optional[str] = None) -> np.ndarray:
+                       impl: Optional[str] = None,
+                       targets=None) -> np.ndarray:
     """Aggregate a (b, k) neighbour-target matrix to (b,) imputed values,
     returned as a host float64 array: float attributes take the per-row
     mean, integer (categorical) attributes the per-row mode with ties to
-    the smallest value.
+    the smallest value.  With ``targets`` (the reference rows' values),
+    ``neigh`` holds the neighbours' ids into it: the ``cuda`` mode gathers
+    inside its kernel, every other member gathers first.
 
     ``numpy`` (default) is the reference package's numpy member, bit for
     bit (float64 mean).  ``ref`` and ``cuda`` take the matrix as a tensor
@@ -287,8 +290,10 @@ def neighbor_aggregate(neigh, *, categorical: bool,
     the int64 mode (exact, like every member's)."""
     impl = resolve_knn_impl(impl)
     if impl != "numpy":
-        return _neighbor_aggregate_torch(neigh, categorical, impl)
+        return _neighbor_aggregate_torch(neigh, categorical, impl, targets)
     neigh = _host(neigh)
+    if targets is not None:
+        neigh = _host(targets)[neigh]
     if neigh.ndim != 2:
         raise ValueError(f"neighbor_aggregate expects (b, k), got {neigh.shape}")
     if neigh.shape[0] == 0:
@@ -308,15 +313,27 @@ def neighbor_aggregate(neigh, *, categorical: bool,
     return uniq[idx].astype(np.float64)
 
 
-def _neighbor_aggregate_torch(neigh, categorical: bool, impl: str
-                              ) -> np.ndarray:
-    vals = (neigh if isinstance(neigh, torch.Tensor)
-            else torch.from_numpy(np.asarray(neigh)))
+def _as_tensor(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.from_numpy(
+        np.asarray(x))
+
+
+def _neighbor_aggregate_torch(neigh, categorical: bool, impl: str,
+                              targets=None) -> np.ndarray:
+    vals = _as_tensor(neigh)
     if vals.dim() != 2:
         raise ValueError(f"neighbor_aggregate expects (b, k), got "
                          f"{tuple(vals.shape)}")
     if vals.shape[0] == 0:
         return np.zeros(0, dtype=np.float64)
+    if targets is not None:
+        targets = _as_tensor(targets).to(vals.device)
+        if categorical and impl == "cuda" and not targets.is_floating_point():
+            # the kernel gathers the neighbours' values itself
+            out = _neighbor_mode_cuda(vals.to(torch.int64).contiguous(),
+                                      targets.to(torch.int64).contiguous())
+            return out.cpu().numpy().astype(np.float64)
+        vals = targets[vals]
     if categorical:
         if vals.is_floating_point():
             raise ValueError("the categorical mode takes integer values")

@@ -362,6 +362,98 @@ def hash_join_group_ref(build_keys: torch.Tensor, log2cap: int,
     return row_slot, slot_count, slot_start, grouped, perm
 
 
+def _merge_split(ends: np.ndarray, total: int, d: int) -> int:
+    """The probe ends among the first ``d`` items of the merge of the
+    probes' inclusive ends and the pairs ``0 .. total``, a pair ``p`` going
+    before an end ``e`` when ``p < e`` (the emit kernel's ``merge_split``)."""
+    lo, hi = max(0, d - total), min(d, len(ends))
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if ends[mid] <= d - 1 - mid:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def _merge_split_block(ends: np.ndarray, d: int, lo: int, hi: int,
+                       threads: int) -> int:
+    """The emit kernel's search for the same split in ``[lo, hi]``: each
+    round tests ``threads`` points spread over the range (every point where
+    the range is no wider) and keeps the gap between the last point that
+    holds and the first that fails."""
+    while lo < hi:
+        span = hi - lo
+        if span <= threads:
+            x = lo + np.arange(span)
+            return lo + int(np.count_nonzero(ends[x] <= d - 1 - x))
+        x = lo + span * np.arange(threads) // threads
+        held = int(np.count_nonzero(ends[x] <= d - 1 - x))
+        lo, hi = (lo if held == 0 else lo + span * (held - 1) // threads + 1,
+                  lo + span * held // threads)
+    return lo
+
+
+def hash_join_emit_tiles_ref(counts, starts, grouped, tile: int,
+                             threads: int = 256):
+    """Emulation of the hash join's probe after the lookups
+    (``csrc/hash_join.cu``), the specification its emit follows.
+    ``counts`` ``(m,)`` holds each probe's matches, ``starts`` where its
+    key's rows begin in ``grouped`` (the build's rows grouped by key).
+    Returns ``(out_probe, out_build)`` as host int64 arrays.
+
+    1. scan: each probe's end is the inclusive sum of the counts, the
+       total the last end;
+    2. the merge of the ends and the pairs ``0 .. total`` is cut into tiles
+       of ``tile`` items; a search on each tile's diagonal by a block of
+       ``threads`` gives its first probe ``a0`` and pair ``p0``, a second
+       one, at most a tile further on, the tile's end;
+    3. the tile's pairs belong to probes ``a0 .. min(a1, m - 1)``, at most
+       ``tile + 1`` (the kernel's shared memory); each pair finds the
+       first of them whose end is past it and copies
+       ``grouped[start - first pair of the probe + pair]``.
+
+    Raises if a block's search disagrees with a binary search, if a tile
+    would hold more probes than that, or if a pair is written other than
+    once."""
+    counts = np.asarray(counts, dtype=np.int64)
+    starts = np.asarray(starts, dtype=np.int64)
+    grouped = np.asarray(grouped, dtype=np.int64)
+    m = len(counts)
+    ends = np.cumsum(counts)
+    total = int(ends[-1]) if m else 0
+    out_probe = np.full(total, -1, dtype=np.int64)
+    out_build = np.full(total, -1, dtype=np.int64)
+    written = np.zeros(total, dtype=np.int64)
+    for d0 in range(0, m + total if total else 0, tile):
+        d1 = min(d0 + tile, m + total)
+        a0 = _merge_split_block(ends, d0, max(0, d0 - total), min(d0, m),
+                                threads)
+        a1 = _merge_split_block(ends, d1, max(a0, d1 - total),
+                                min(a0 + d1 - d0, m), threads)
+        if (a0, a1) != (_merge_split(ends, total, d0),
+                        _merge_split(ends, total, d1)):
+            raise AssertionError(f"the block's search misses the split of "
+                                 f"the tile at {d0}")
+        p0, p1 = d0 - a0, d1 - a1
+        probes = np.arange(a0, min(a1, m - 1) + 1)
+        if len(probes) > tile + 1:
+            raise AssertionError(f"tile at {d0} holds {len(probes)} probes")
+        tile_end = ends[probes]
+        begin = np.where(probes == 0, 0, ends[probes - 1])
+        tile_off = starts[probes] - begin
+        p = np.arange(p0, p1)
+        j = np.searchsorted(tile_end, p, side="right")
+        if len(p) and j.max() >= len(probes):
+            raise AssertionError(f"a pair of the tile at {d0} has no probe")
+        out_probe[p] = a0 + j
+        out_build[p] = grouped[tile_off[j] + p]
+        written[p] += 1
+    if not np.all(written == 1):
+        raise AssertionError("a pair was written other than once")
+    return out_probe, out_build
+
+
 def neighbor_mean_ref(vals: torch.Tensor) -> torch.Tensor:
     """KNN float aggregation: ``(b, k)`` float32 → ``(b,)`` row means.
 

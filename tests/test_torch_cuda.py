@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import bloom_probe as bp
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import hash_join as hj
 from repro_torch.kernels import knn_distance as kd
@@ -225,6 +226,73 @@ def test_hash_join_build_at_2_21_slots_with_a_run_of_831(cuda_device):
         assert torch.equal(g, w)
 
 
+def _emit_edge_case(name: str):
+    """Probes whose pairs, or pairs and probes merged, fill the emit's tile
+    of T = ``hj.EMIT_TILE`` items to T - 1, T and T + 1; probes that all
+    miss; a run of 831 across tiles."""
+    t = hj.EMIT_TILE
+    rng = np.random.default_rng(len(name))
+    if name == "all miss":
+        return np.arange(5000), np.arange(10_000, 20_000)
+    if name == "run of 831":
+        b = np.concatenate([np.full(831, -1), rng.integers(0, 900, 4000)])
+        return b, np.concatenate([np.full(7, -1), rng.integers(0, 1000, 300)])
+    kind, n = name.split()
+    n = {"T-1": t - 1, "T": t, "T+1": t + 1, "0": 0, "1": 1}[n]
+    tail = 3 if kind == "merged" else 0
+    pairs = n - tail - 1 if kind == "merged" else n
+    b = np.concatenate([np.full(pairs, 7), np.arange(100, 140)])
+    return b, np.concatenate([[7], np.full(tail, -3)])
+
+
+def test_hash_join_emit_tile_is_the_kernels(cuda_device):
+    """The CPU emulation and the tile-edge cases use the kernel's tile."""
+    assert build.library().quipt_join_emit_tile() == hj.EMIT_TILE
+
+
+@pytest.mark.parametrize("name", ["total 0", "total 1", "total T-1",
+                                  "total T", "total T+1", "merged T-1",
+                                  "merged T", "merged T+1", "all miss",
+                                  "run of 831"])
+def test_hash_join_probe_at_tile_edges(cuda_device, name):
+    b, p = _emit_edge_case(name)
+    b, p = b.astype(np.int64), p.astype(np.int64)
+    bt = torch.from_numpy(b).to(cuda_device)
+    pt = torch.from_numpy(p).to(cuda_device)
+    table = hj.hash_join_build(bt)
+    before = hj.probe_launches
+    got = hj.hash_join_probe(table, pt)
+    torch.cuda.synchronize()
+    assert hj.probe_launches == before + 1
+    for g, w in zip(got, kref.hash_join_ref(bt, pt)):
+        assert torch.equal(g, w)
+    for g, w in zip(got, kops.sort_join(b, p)):
+        np.testing.assert_array_equal(g.cpu().numpy(), w)
+
+
+@pytest.mark.parametrize("name", ["skewed", "wide"])
+def test_hash_join_probe_waits_once(cuda_device, name):
+    """The probe's one host wait is an event synchronise on the pinned copy
+    of its total: with synchronising calls made errors, it raises
+    nothing."""
+    b, p = _join_case(name)
+    bt = torch.from_numpy(b).to(cuda_device)
+    pt = torch.from_numpy(p).to(cuda_device)
+    table = hj.hash_join_build(bt)
+    want = hj.hash_join_probe(table, pt)  # the pinned buffer exists now
+    torch.cuda.synchronize()
+    before = hj.probe_launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = hj.hash_join_probe(table, pt)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert hj.probe_launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 def test_hash_join_match_on_card(cuda_device):
     b, p = _join_case("skewed")
     for impl in ("ref", "cuda"):
@@ -271,6 +339,55 @@ def test_neighbor_mode_kernel_equals_plain(cuda_device, b, k, classes):
     torch.cuda.synchronize()
     assert na.mode_launches == before + 1
     assert torch.equal(got, kref.neighbor_mode_ref(vals))
+
+
+@pytest.mark.parametrize("b,k,n_ref,classes", [
+    (1, 1, 1, 1), (64, 5, 300, 3), (1024, 5, 486_799, 7), (1000, 1, 50, 9),
+    (300, 13, 900, 4), (4097, 13, 10_000, 1000), (70, 17, 200, 3),
+    (129, 40, 500, 6)])
+def test_neighbor_mode_ids_form_equals_plain(cuda_device, b, k, n_ref,
+                                             classes):
+    rng = np.random.default_rng(b * 10 + k + n_ref)
+    labels = rng.integers(-(2**40), 2**40, classes)
+    targets = torch.from_numpy(labels[rng.integers(0, classes, n_ref)]).to(
+        cuda_device)
+    ids = torch.from_numpy(rng.integers(0, n_ref, (b, k))).to(cuda_device)
+    before = na.mode_launches
+    got = na.neighbor_mode(ids, targets)
+    torch.cuda.synchronize()
+    assert na.mode_launches == before + 1
+    assert torch.equal(got, kref.neighbor_mode_ref(targets[ids]))
+    assert torch.equal(got, na.neighbor_mode(targets[ids]))
+
+
+def test_neighbor_mode_ids_form_ties_on_card(cuda_device):
+    targets = torch.tensor([9, 2, 5, 1, -3, 7], device=cuda_device)
+    ids = torch.tensor([[0, 1, 1, 0], [2, 2, 3, 3], [4, 5, 5, 4]],
+                       device=cuda_device)
+    assert na.neighbor_mode(ids, targets).cpu().tolist() == [2, 1, -3]
+
+
+def test_neighbor_aggregate_gathers_in_the_mode_kernel(cuda_device):
+    """An integer attribute's ids and targets: the cuda member launches the
+    mode kernel once and no separate gather."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(8)
+    targets = torch.from_numpy(rng.integers(0, 6, 5000)).to(cuda_device)
+    ids = torch.from_numpy(rng.integers(0, 5000, (1024, 5))).to(cuda_device)
+    kops.neighbor_aggregate(ids, categorical=True, impl="cuda",
+                            targets=targets)
+    before = na.mode_launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = kops.neighbor_aggregate(ids, categorical=True, impl="cuda",
+                                      targets=targets)
+        torch.cuda.synchronize()
+    assert na.mode_launches == before + 1
+    names = [e.key for e in prof.key_averages()
+             if "Memcpy" not in e.key and "Memset" not in e.key]
+    assert not any("index" in n.lower() for n in names), names
+    want = kref.neighbor_mode_ref(targets[ids]).cpu().numpy()
+    np.testing.assert_array_equal(got, want.astype(np.float64))
 
 
 def test_neighbor_mode_ties_on_card(cuda_device):

@@ -34,6 +34,7 @@ from repro_torch.imputers import ImputationEngine, MeanImputer
 from repro_torch.kernels import hash_join as hj
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels import segment_ops as so
 
 MISSING_KEY = -(2**62)  # BF_Join's key for a build row whose key is missing
 MISSING_PROBE = -(2**61)  # the spine's key for a probe row with a missing key
@@ -174,6 +175,119 @@ def test_float_keys_take_the_oracle():
     probe = np.array([1.5, 3.0])
     got = multi_match(build, probe, impl="cuda", device="cpu")
     _assert_pairs(got, jax_multi_match(build, probe), "float keys")
+
+
+# --------------------------------------------------------------------------- #
+# the probe's emit: the emulation of its merge-path tiles
+# --------------------------------------------------------------------------- #
+def _probe_lookups(build: np.ndarray, probe: np.ndarray):
+    """Each probe's match count and its key's start in ``grouped``, from the
+    emulation of the build (``hash_join_group_ref``), as the probe kernel
+    finds them."""
+    log2cap = hj.table_log2cap(len(build))
+    owners = -(-(1 << log2cap) // hj.OWNER_SLOTS)
+    _, _, chunk_rows = so.place_grid(len(build), owners)
+    row_slot, count, start, grouped, _ = kref.hash_join_group_ref(
+        torch.from_numpy(build), log2cap, hj.OWNER_SLOTS, chunk_rows)
+    slot_of = dict(zip(build.tolist(), row_slot.tolist()))
+    slots = np.array([slot_of.get(k, -1) for k in probe.tolist()],
+                     dtype=np.int64)
+    hit = slots >= 0
+    counts = np.where(hit, count[np.maximum(slots, 0)], 0)
+    starts = np.where(hit, start[np.maximum(slots, 0)], 0)
+    return counts, starts, grouped
+
+
+def _run_of(n: int, tail_probes: int = 0):
+    """``n`` copies of one key among 40 other keys, probed once, with
+    ``tail_probes`` probes of absent keys after it."""
+    build = np.concatenate([np.full(n, 7), np.arange(100, 140)])
+    probe = np.concatenate([[7], np.full(tail_probes, -3)])
+    return build, probe
+
+
+_TILE = 8
+_EMIT_CASES = {
+    # totals of 0, 1, T - 1, T and T + 1 pairs for a tile of T
+    "total 0": (np.arange(5), np.arange(10, 30), _TILE),
+    "total 1": (np.array([5]), np.array([5]), _TILE),
+    "total T-1": (*_run_of(_TILE - 1), _TILE),
+    "total T": (*_run_of(_TILE), _TILE),
+    "total T+1": (*_run_of(_TILE + 1), _TILE),
+    # the merged probes and pairs at T - 1, T and T + 1 items
+    "merged T-1": (*_run_of(_TILE - 3, 1), _TILE),
+    "merged T": (*_run_of(_TILE - 3, 2), _TILE),
+    "merged T+1": (*_run_of(_TILE - 3, 3), _TILE),
+    # whole tiles of probes without a match between and after two hits
+    "all-miss probes": (np.array([4, 9, 4, 9]),
+                        np.concatenate([[4], np.full(40, -1), [9],
+                                        np.full(33, -2)]), _TILE),
+    # the wifi spine's run of 831 copies, across the kernel's tiles and
+    # across many small ones
+    "run of 831, the kernel's tile": (
+        np.concatenate([np.full(831, -1), np.arange(3000) % 1200]),
+        np.concatenate([np.arange(1300), [-1, -1], [5, -1]]), hj.EMIT_TILE),
+    "run of 831, tile 64": (
+        np.concatenate([np.full(831, -1), np.arange(500) % 200]),
+        np.array([-1, 3, -1, 7, -5, -1]), 64),
+}
+
+
+def _tiles_inside_a_range(counts: np.ndarray, tile: int) -> int:
+    """The tiles that begin strictly inside a probe's range of pairs."""
+    ends = np.cumsum(counts)
+    total = int(ends[-1]) if len(ends) else 0
+    inside = 0
+    for d0 in range(0, len(counts) + total, tile):
+        a0 = kref._merge_split(ends, total, d0)
+        begin = 0 if a0 == 0 else ends[a0 - 1]
+        inside += a0 < len(counts) and begin < d0 - a0 < ends[a0]
+    return inside
+
+
+@pytest.mark.parametrize("what", sorted(_EMIT_CASES))
+def test_emit_tiles_emulation_matches_reference(what):
+    build, probe, tile = _EMIT_CASES[what]
+    build = np.asarray(build, dtype=np.int64)
+    probe = np.asarray(probe, dtype=np.int64)
+    counts, starts, grouped = _probe_lookups(build, probe)
+    if "831" in what:  # the run crosses a tile
+        assert _tiles_inside_a_range(counts, tile) >= 1
+    got = kref.hash_join_emit_tiles_ref(counts, starts, grouped, tile)
+    want = nested_loop_oracle(build, probe)
+    _assert_pairs(got, jax_multi_match(build, probe), f"{what}: multi_match")
+    _assert_pairs(got, want, f"{what}: nested loop")
+    plain = kref.hash_join_probe_ref(
+        *kref.hash_join_build_ref(torch.from_numpy(build)),
+        torch.from_numpy(probe))
+    _assert_pairs(got, [t.numpy() for t in plain], f"{what}: plain probe")
+
+
+@pytest.mark.parametrize("threads", [2, 3, 256])
+def test_emit_block_search_finds_every_split(threads):
+    """The block's search (points spread over the range, then every point)
+    gives the binary search's split at every diagonal, with ranges wider
+    and narrower than a block."""
+    rng = np.random.default_rng(threads)
+    counts = rng.integers(0, 4, 3000) * (rng.random(3000) < 0.5)
+    ends = np.cumsum(counts)
+    total = int(ends[-1])
+    for d in range(0, len(counts) + total + 1, 37):
+        want = kref._merge_split(ends, total, d)
+        got = kref._merge_split_block(ends, d, max(0, d - total),
+                                      min(d, len(counts)), threads)
+        assert got == want, d
+
+
+def test_emit_tiles_start_inside_a_probes_range():
+    """With a tile of 8 and a run of 20 matches, tiles begin in the middle
+    of the run: the emulation's pairs stay exact, and it counts such
+    starts."""
+    build, probe = _run_of(20, 2)
+    counts, starts, grouped = _probe_lookups(build, probe)
+    assert _tiles_inside_a_range(counts, _TILE) >= 2
+    got = kref.hash_join_emit_tiles_ref(counts, starts, grouped, _TILE)
+    _assert_pairs(got, nested_loop_oracle(build, probe), "mid-range tiles")
 
 
 # --------------------------------------------------------------------------- #

@@ -27,7 +27,8 @@ from repro.imputers import ImputationEngine as JaxEngine
 from repro.imputers import KnnImputer as JaxKnn
 from repro.kernels import ops as jax_kops
 from repro.kernels import ref as jax_ref
-from repro.kernels.neighbor_agg import neighbor_mean_pallas
+from repro.kernels.neighbor_agg import (neighbor_mean_pallas,
+                                        neighbor_mode_pallas)
 from repro_torch.imputers import ImputationEngine, KnnImputer
 from repro_torch.kernels import neighbor_agg as na
 from repro_torch.kernels import ops as kops
@@ -119,6 +120,72 @@ def test_neighbor_mode_tie_breaks_to_smallest_value():
             err_msg=impl)
 
 
+def _ids_case(b: int, k: int, n_ref: int, classes: int, seed: int):
+    """Neighbour ids of a (b, k) batch into n_ref reference rows whose
+    targets take ``classes`` raw int64 values."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(-(2**40), 2**40, classes)
+    targets = labels[rng.integers(0, classes, n_ref)]
+    ids = rng.integers(0, n_ref, (b, k))
+    return ids.astype(np.int64), targets.astype(np.int64)
+
+
+@pytest.mark.parametrize("b,k,n_ref,classes", [(1, 1, 1, 1), (64, 5, 300, 3),
+                                               (1024, 5, 5000, 7),
+                                               (300, 13, 900, 4),
+                                               (37, 13, 50, 1000)])
+def test_neighbor_mode_ids_form_matches_reference(b, k, n_ref, classes):
+    """The ids form's plain path equals the reference's Pallas mode
+    (interpret mode) on the gathered values' dictionary codes, and its
+    numpy member."""
+    ids, targets = _ids_case(b, k, n_ref, classes, b * 7 + k + n_ref)
+    vals = targets[ids]
+    uniq, inv = np.unique(vals, return_inverse=True)
+    codes = inv.reshape(vals.shape).astype(np.int32)
+    want_pl = uniq[np.asarray(neighbor_mode_pallas(
+        jnp.asarray(codes), num_classes=len(uniq), interpret=True))]
+    want = jax_kops.neighbor_aggregate(vals, categorical=True, impl="numpy")
+    np.testing.assert_array_equal(want_pl, want.astype(np.int64))
+    got = na.neighbor_mode(torch.from_numpy(ids), torch.from_numpy(targets))
+    assert got.dtype == torch.int64 and got.shape == (b,)
+    np.testing.assert_array_equal(got.numpy(), want_pl)
+    assert torch.equal(got, kref.neighbor_mode_ref(torch.from_numpy(vals)))
+    for impl in ("numpy", "ref", "cuda"):
+        np.testing.assert_array_equal(
+            kops.neighbor_aggregate(ids, categorical=True, impl=impl,
+                                    targets=targets), want, err_msg=impl)
+
+
+@pytest.mark.parametrize("impl", ["numpy", "ref", "cuda"])
+def test_neighbor_mode_ids_form_ties(impl):
+    """Tie rows through the ids: ties go to the smallest value."""
+    targets = np.array([9, 2, 5, 1, -3, 7, 4, 3], dtype=np.int64)
+    ids = np.array([[0, 1, 1, 0], [2, 2, 3, 3], [4, 5, 5, 4], [6, 7, 1, 3]],
+                   dtype=np.int64)
+    want = [2.0, 1.0, -3.0, 1.0]
+    np.testing.assert_array_equal(
+        jax_kops.neighbor_aggregate(targets[ids], categorical=True,
+                                    impl="ref"), want)
+    np.testing.assert_array_equal(
+        kops.neighbor_aggregate(ids, categorical=True, impl=impl,
+                                targets=targets), want)
+    got = na.neighbor_mode(torch.from_numpy(ids), torch.from_numpy(targets))
+    assert got.tolist() == [2, 1, -3, 1]
+
+
+@pytest.mark.parametrize("impl", ["numpy", "ref", "cuda"])
+def test_float_aggregate_through_ids(impl):
+    """A float attribute's ids and targets: the members gather, then take
+    the mean they take on the gathered values."""
+    rng = np.random.default_rng(5)
+    targets = rng.normal(50.0, 20.0, 400)
+    ids = rng.integers(0, 400, (64, 5))
+    np.testing.assert_array_equal(
+        kops.neighbor_aggregate(ids, categorical=False, impl=impl,
+                                targets=targets),
+        kops.neighbor_aggregate(targets[ids], categorical=False, impl=impl))
+
+
 def test_wrappers_check_input():
     with pytest.raises(ValueError, match="float32"):
         na.neighbor_mean(torch.zeros((2, 3), dtype=torch.float64))
@@ -128,6 +195,9 @@ def test_wrappers_check_input():
         na.neighbor_mean(torch.zeros((3, 2), dtype=torch.float32).t())
     with pytest.raises(ValueError, match="at least one column"):
         na.neighbor_mode(torch.zeros((2, 0), dtype=torch.int64))
+    with pytest.raises(ValueError, match="targets"):
+        na.neighbor_mode(torch.zeros((2, 3), dtype=torch.int64),
+                         torch.zeros(4, dtype=torch.int32))
     with pytest.raises(ValueError, match="integer"):
         kops.neighbor_aggregate(np.zeros((2, 3)), categorical=True,
                                 impl="ref")
