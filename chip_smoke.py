@@ -55,6 +55,17 @@ the mode at the main path's ids beside the gather + values-form pair it
 replaced; an empty kernel gives the floor of one launch.  No mode call on
 the main paths may gather its values outside the kernel.
 
+Slice 8 redesigns the last two: the bloom probe takes the raw int64 keys
+and folds them in the kernel (``bloom_probe_keys``; ``BloomFilter.
+might_contain`` uploads the keys through a pinned buffer and makes one
+synchronisation), and the neighbour mean, like the mode, takes the KNN's
+ids and gathers the targets itself.  ``might_contain`` is timed as the
+main path calls it, from host keys to host flags (host clock), beside the
+parent's route (host ``fold64`` and the folded-key kernel) and split into
+host work, copy up, kernel and copy down; the mean's fused form beside
+the gather + values-form pair.  No bloom probe on the main paths may fold
+its keys on the host, and no mean may gather outside its kernel.
+
 Each configuration runs once through the kernels and once through the plain
 versions, whose answers and imputation counts must agree; slice 2's wifi
 answers must also equal slice 1's.  The last phases check the paper's
@@ -99,7 +110,8 @@ FP32_OPS_PER_S = 67e12  # CUDA cores, no tensor cores
 BF16_TENSOR_OPS_PER_S = 989e12  # dense, tensor cores
 
 # the device functions of src/repro_torch/csrc, as the profiler names them
-PORT_KERNELS = ("bloom_probe_kernel", "masked_distance_kernel",
+PORT_KERNELS = ("bloom_probe_kernel", "bloom_probe_keys_kernel",
+                "masked_distance_kernel",
                 "masked_knn_select_kernel", "masked_knn_merge_kernel",
                 "join_insert_kernel", "join_place_kernel",
                 "join_probe_scan_kernel", "join_emit_kernel",
@@ -207,39 +219,183 @@ def bloom_err(got, want) -> int:
 
 
 def check_bloom(dev, bp, kref, fold64) -> int:
+    """Both entries against their plain versions: the folded-key kernel,
+    and the int64-key kernel at ragged sizes, on keys that start on a
+    16-byte boundary and on a view that does not (``keys[1:]``), with
+    extreme keys at both ends; the two kernels' flags must also agree."""
     rng = np.random.default_rng(0)
+    edge = np.array([0, -1, 2**31, -(2**31), 2**32, -(2**63), 2**63 - 1],
+                    dtype=np.int64)
     err = 0
     for log2m in (14, 20, 23):
-        for num_hashes in (2, 4, 8):
-            bits = rng.integers(0, 2**32, (1 << log2m) // 32, dtype=np.uint32)
-            b = torch.from_numpy(bits.view(np.int32)).to(dev)
-            for n in (1, 1000, 1 << 20):
-                keys = rng.integers(-(2**62), 2**62, n).astype(np.int64)
+        bits = rng.integers(0, 2**32, (1 << log2m) // 32, dtype=np.uint32)
+        b = torch.from_numpy(bits.view(np.int32)).to(dev)
+        for num_hashes in range(1, 9):
+            for n in (1, 3, 4, 5, 1000, (1 << 20) + 3):
+                keys = np.concatenate([edge, rng.integers(
+                    -(2**62), 2**62, n).astype(np.int64), edge])
+                kt = torch.from_numpy(keys).to(dev)
+                for view in (kt[7:7 + n], kt[8:8 + n], kt[1:], kt):
+                    got = bp.bloom_probe_keys(b, view, num_hashes=num_hashes,
+                                              log2m=log2m)
+                    want = kref.bloom_probe_keys_ref(b, view, num_hashes,
+                                                     log2m)
+                    err = max(err, bloom_err(got, want))
                 f = torch.from_numpy(fold64(keys).view(np.int32)).to(dev)
-                got = bp.bloom_probe(b, f, num_hashes=num_hashes, log2m=log2m)
-                want = kref.bloom_probe_ref(b, f, num_hashes, log2m)
-                err = max(err, bloom_err(got, want))
-        print(f"   bloom_probe == plain at log2m={log2m}, num_hashes 2/4/8, "
-              f"n 1/1000/2^20", flush=True)
+                folded = bp.bloom_probe(b, f, num_hashes=num_hashes,
+                                        log2m=log2m)
+                err = max(err, bloom_err(folded, kref.bloom_probe_ref(
+                    b, f, num_hashes, log2m)))
+                err = max(err, bloom_err(folded, bp.bloom_probe_keys(
+                    b, kt, num_hashes=num_hashes, log2m=log2m)))
+        print(f"   bloom_probe (folded keys) and bloom_probe_keys (int64 "
+              f"keys, 16-byte aligned and not) == plain at log2m={log2m}, "
+              f"num_hashes 1-8, n 1/3/4/5/1000/2^20+3", flush=True)
     return err
 
 
-def time_bloom(dev, bp, kref, fold64, n: int, num_hashes: int, log2m: int):
-    rng = np.random.default_rng(1)
-    bits = rng.integers(0, 2**32, (1 << log2m) // 32, dtype=np.uint32)
-    b = torch.from_numpy(bits.view(np.int32)).to(dev)
-    keys = rng.integers(-(2**62), 2**62, n).astype(np.int64)
-    f = torch.from_numpy(fold64(keys).view(np.int32)).to(dev)
-    err = bloom_err(bp.bloom_probe(b, f, num_hashes=num_hashes, log2m=log2m),
-                    kref.bloom_probe_ref(b, f, num_hashes, log2m))
-    ms = cuda_ms(lambda: bp.bloom_probe(b, f, num_hashes=num_hashes,
-                                        log2m=log2m), reps=200)
-    plain = cuda_ms(lambda: kref.bloom_probe_ref(b, f, num_hashes, log2m),
-                    reps=50)
-    bnd, by = bound_ms(nbytes=n * 4 + n + bits.nbytes,
-                       ops=n * num_hashes * 5)
-    return {"ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
-            "err": err, "shape": f"n={n} num_hashes={num_hashes} log2m={log2m}"}
+def time_bloom(dev, bp, kref, fold64, bits, keys, num_hashes: int,
+               log2m: int):
+    """The kernel the main path calls (int64 keys, the fold inside) at one
+    call's bits and keys, against its plain version; the folded-key kernel
+    on the same keys, folded beforehand, beside it."""
+    n = keys.shape[0]
+    err = bloom_err(bp.bloom_probe_keys(bits, keys, num_hashes=num_hashes,
+                                        log2m=log2m),
+                    kref.bloom_probe_keys_ref(bits, keys, num_hashes, log2m))
+    ms = cuda_ms(lambda: bp.bloom_probe_keys(
+        bits, keys, num_hashes=num_hashes, log2m=log2m), reps=200)
+    plain = cuda_ms(lambda: kref.bloom_probe_keys_ref(
+        bits, keys, num_hashes, log2m), reps=50)
+    device = profile_calls(f"bloom_probe_keys at n={n}",
+                           lambda: bp.bloom_probe_keys(
+                               bits, keys, num_hashes=num_hashes,
+                               log2m=log2m), calls=50)
+    f = torch.from_numpy(fold64(keys.cpu().numpy()).view(np.int32)).to(dev)
+    folded_ms = cuda_ms(lambda: bp.bloom_probe(
+        bits, f, num_hashes=num_hashes, log2m=log2m), reps=200)
+    # read the int64 keys and the bitset once, write the flags
+    bnd, by = bound_ms(nbytes=8 * n + n + 4 * bits.shape[0],
+                       ops=n * (num_hashes * 5 + 2))
+    print(f"   bloom_probe_keys at n={n}: {ms:.4f} ms (device {device:.4f}),"
+          f" plain {plain:.4f} ms, bound {bnd:.5f} ms ({by}); the folded-key"
+          f" kernel on the same keys folded beforehand {folded_ms:.4f} ms",
+          flush=True)
+    return {"ms": ms, "device_ms": device, "plain_ms": plain,
+            "folded_ms": folded_ms, "bound_ms": bnd, "bound_by": by,
+            "err": err,
+            "shape": f"n={n} num_hashes={num_hashes} log2m={log2m}"}
+
+
+def parent_might_contain(bloom, keys: np.ndarray, bp, fold64) -> np.ndarray:
+    """``BloomFilter.might_contain`` as the port had it before the fold
+    moved onto the card: ``fold64`` on the host, the folded keys up from
+    pageable memory, the folded-key kernel, the flags down with ``.cpu()``."""
+    folded = fold64(keys)
+    out = bp.bloom_probe(bloom._device_bits(),
+                         torch.from_numpy(folded.view(np.int32)).to(
+                             bloom.device),
+                         num_hashes=bloom.num_hashes, log2m=bloom.log2m)
+    return out.cpu().numpy()
+
+
+def pageable_might_contain(bloom, keys: np.ndarray, bp) -> np.ndarray:
+    """The keys route without the pinned staging: the int64 keys up from
+    pageable memory, the keys kernel, the flags down with ``.cpu()``."""
+    k = torch.from_numpy(np.ascontiguousarray(keys.astype(np.int64,
+                                                          copy=False)))
+    out = bp.bloom_probe_keys(bloom._device_bits(), k.to(bloom.device),
+                              num_hashes=bloom.num_hashes, log2m=bloom.log2m)
+    return out.cpu().numpy()
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median host-clock time of one call of ``fn`` in ms; ``fn`` ends with
+    its result on the host."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def main_like_bloom(dev, bloom_mod, n: int = 486_799, seed: int = 9):
+    """A filter and probe keys of the main path's largest probe's size, for
+    ``--kernels``, which runs no query to record them: 4,000 small keys
+    inserted (the wifi users), ``n`` keys probed from twice their range."""
+    rng = np.random.default_rng(seed)
+    bloom = bloom_mod.BloomFilter("users.uid", device=dev)
+    bloom.insert(rng.choice(8000, 4000, replace=False).astype(np.int64))
+    return bloom, rng.integers(0, 8000, n).astype(np.int64)
+
+
+def time_bloom_op(bloom, keys: np.ndarray, bp, fold64, keys_route: bool,
+                  reps: int = 50) -> dict:
+    """``might_contain`` from host int64 keys to host flags, on the host's
+    clock, in turns: the parent's route (``parent_might_contain``), this
+    tree's, and the keys route from pageable memory, each twice.  Each
+    route's window is split into the device's copy up, kernel and copy
+    down (the profiler) and the host's work, the rest.  ``keys_route``:
+    the checkout has the keys kernel (``--kernels`` runs older ones)."""
+    n = len(keys)
+    routes = {"parent": lambda: parent_might_contain(bloom, keys, bp,
+                                                      fold64)}
+    want = routes["parent"]()
+    if not np.array_equal(want, bloom.might_contain(keys, impl="numpy")):
+        raise AssertionError("the parent's bloom route differs from the "
+                             "numpy member")
+    if keys_route:
+        routes["this tree"] = lambda: bloom.might_contain(keys)
+        routes["pageable"] = lambda: pageable_might_contain(bloom, keys, bp)
+    for name, fn in routes.items():
+        if not np.array_equal(fn(), want):
+            raise AssertionError(f"might_contain's {name} route differs from "
+                                 f"the parent's at n={n}")
+    order = list(routes) + list(routes)[::-1]
+    times = {name: [] for name in routes}
+    for name in order:
+        times[name].append(host_ms(routes[name], reps))
+    fold_ms = host_ms(lambda: fold64(keys), reps)
+    out = {"n": n, "fold_ms": fold_ms}
+    for name, fn in routes.items():
+        parts = device_times(fn, calls=20)
+        window = float(np.median(times[name]))
+        up = sum(v for k, v in parts.items() if "HtoD" in k)
+        down = sum(v for k, v in parts.items() if "DtoH" in k)
+        kernel = sum(v for k, v in parts.items()
+                     if "HtoD" not in k and "DtoH" not in k)
+        out[name] = {"window_ms": window, "runs_ms": times[name],
+                     "up_ms": up, "kernel_ms": kernel, "down_ms": down,
+                     "host_ms": window - up - kernel - down}
+        print(f"   might_contain at n={n}, {name} route: window "
+              f"{' / '.join(f'{t:.4f}' for t in times[name])} ms (host "
+              f"clock, two runs); device: copy up {up:.4f}, kernel "
+              f"{kernel:.4f}, copy down {down:.4f} ms; host work "
+              f"{window - up - kernel - down:.4f} ms", flush=True)
+    print(f"   fold64 on the host at n={n}: {fold_ms:.4f} ms", flush=True)
+    return out
+
+
+def time_bloom_calls(calls, bloom_mod, bp, fold64, dev) -> dict:
+    """The op windows summed over every recorded main-path probe: each
+    call's filter and keys through the parent's route and this tree's."""
+    total = {"parent": 0.0, "this tree": 0.0}
+    for bits, keys, num_hashes, log2m in calls:
+        bloom = bloom_mod.BloomFilter("recorded", log2m=log2m,
+                                      num_hashes=num_hashes, device=dev)
+        bloom.load_bits(bits.cpu().numpy().view(np.uint32))
+        host = keys.cpu().numpy()
+        total["parent"] += host_ms(
+            lambda: parent_might_contain(bloom, host, bp, fold64), reps=5)
+        total["this tree"] += host_ms(lambda: bloom.might_contain(host),
+                                      reps=5)
+    print(f"   might_contain summed over the {len(calls)} main-path probes "
+          f"(median of 5 each, host clock): parent's route "
+          f"{total['parent']:.4f} ms, this tree's {total['this tree']:.4f} ms",
+          flush=True)
+    return total
 
 
 def knn_matrices(tables, table: str, attr: str, dev, knn_mod, nq=1024):
@@ -256,11 +412,12 @@ def knn_matrices(tables, table: str, attr: str, dev, knn_mod, nq=1024):
     return q, qm, r, rm
 
 
-def knn_mode_inputs(tables, table: str, attr: str, dev, knn_mod, kops,
-                    nq=1024):
-    """The (nq, k) neighbour ids and the reference rows' int64 targets that
-    the KNN imputer hands the mode for the first ``nq`` missing cells of an
-    integer attribute, for ``--kernels``, which runs no query to record
+def knn_ids_inputs(tables, table: str, attr: str, dev, knn_mod, kops,
+                   dtype, nq=1024):
+    """The (nq, k) neighbour ids and the reference rows' targets (as
+    ``dtype``: int64 for the mode, float32 for the mean) that the KNN
+    imputer hands the aggregation for the first ``nq`` missing cells of
+    ``table.attr``, for ``--kernels``, which runs no query to record
     them."""
     rel = tables[table]
     imp = knn_mod.KnnImputer(k=5, device=dev)
@@ -268,7 +425,7 @@ def knn_mode_inputs(tables, table: str, attr: str, dev, knn_mod, kops,
     r, rm, keep, tgt = imp._reference(rel, attr)
     q, qm, _, _ = knn_matrices(tables, table, attr, dev, knn_mod, nq)
     _, ids = kops.masked_knn(q, qm, r, rm, k=5)
-    return ids.contiguous(), torch.from_numpy(tgt.astype(np.int64)).to(dev)
+    return ids.contiguous(), torch.from_numpy(tgt.astype(dtype)).to(dev)
 
 
 def compare_distance(kd, kref, q, qm, r, rm) -> float:
@@ -720,20 +877,59 @@ def check_neighbor(dev, na, kref):
     return mean_err, mode_err
 
 
-def time_neighbor(na, kref, mean_vals, mode_ids, mode_targets):
-    b, k = mean_vals.shape
-    mean_err = float((na.neighbor_mean(mean_vals)
-                      - kref.neighbor_mean_ref(mean_vals)).abs().max())
-    mean = {
-        "ms": cuda_ms(lambda: na.neighbor_mean(mean_vals), reps=200),
-        "plain_ms": cuda_ms(lambda: kref.neighbor_mean_ref(mean_vals),
-                            reps=200),
-        "library_ms": cuda_ms(lambda: torch.mean(mean_vals, dim=1), reps=200),
-        "err": mean_err, "shape": f"({b}, {k}) float32",
-    }
-    mean["bound_ms"], mean["bound_by"] = bound_ms(nbytes=4 * b * k + 4 * b,
-                                                  ops=b * k)
-    return mean, time_mode(na, kref, mode_ids, mode_targets)
+def time_mean(na, kref, ids, targets, fused: bool = True):
+    """The mean at one batch's neighbour ids, as ``time_mode`` times the
+    mode: the fused form (the kernel gathers the float32 targets), the pair
+    it replaced (the ``targets[ids]`` gather, then the values form), the
+    plain version, and ``targets[ids].mean(1)`` (timed only).  ``fused``:
+    time the fused form (``--kernels`` runs older checkouts, which have
+    none)."""
+    vals = targets[ids]
+    b, k = ids.shape
+    want = kref.neighbor_mean_ref(vals)
+
+    def pair():
+        return na.neighbor_mean(targets[ids])
+
+    got = pair()
+    if not torch.equal(got, want):
+        raise AssertionError("the gather + neighbor_mean pair is not bitwise "
+                             "equal to its plain version")
+    err = float((got - want).abs().max())
+    t = {"pair_ms": cuda_ms(pair, reps=200),
+         "plain_ms": cuda_ms(lambda: kref.neighbor_mean_ref(targets[ids]),
+                             reps=200),
+         "library_ms": cuda_ms(lambda: targets[ids].mean(1), reps=200),
+         "shape": f"({b}, {k}) int64 ids into {len(targets)} float32 "
+                  f"targets"}
+    t["pair_device_ms"] = profile_calls("the gather + neighbor_mean pair",
+                                        pair, calls=50)
+    t["ms"] = t["device_ms"] = None
+    if fused:
+        got = na.neighbor_mean(ids, targets)
+        if not torch.equal(got, want):
+            raise AssertionError("neighbor_mean's ids form is not bitwise "
+                                 "equal to its plain version at the main "
+                                 "path's ids")
+        err = max(err, float((got - want).abs().max()))
+        t["ms"] = cuda_ms(lambda: na.neighbor_mean(ids, targets), reps=200)
+        t["device_ms"] = profile_calls(
+            "neighbor_mean (ids form)", lambda: na.neighbor_mean(ids, targets),
+            calls=50)
+    t["err"] = err
+    # read the ids and, once each, the targets they name; write the means
+    distinct = int(torch.unique(ids).numel())
+    t["shape"] += f", {distinct} distinct"
+    t["bound_ms"], t["bound_by"] = bound_ms(
+        nbytes=8 * b * k + 4 * distinct + 4 * b, ops=b * k)
+    fused_ms = "not in this checkout" if t["ms"] is None else \
+        f"{t['ms']:.4f} ms (device {t['device_ms']:.4f})"
+    print(f"   neighbor_mean at {t['shape']}: fused {fused_ms}, gather + "
+          f"values form {t['pair_ms']:.4f} ms (device "
+          f"{t['pair_device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, "
+          f"targets[ids].mean(1) {t['library_ms']:.4f} ms, bound "
+          f"{t['bound_ms']:.7f} ms ({t['bound_by']})", flush=True)
+    return t
 
 
 def time_mode(na, kref, ids, targets, fused: bool = True):
@@ -877,32 +1073,47 @@ def check_segment(dev, so, kref, kops) -> float:
     return err
 
 
-def profile_calls(label: str, fn, calls: int) -> float:
-    """Device time per call of each kernel (and copy) ``fn`` launches, from
-    ``torch.profiler`` over ``calls`` calls, printed; returns their sum."""
+def device_times(fn, calls: int) -> dict:
+    """Device ms per call of each kernel (and copy) ``fn`` launches, by
+    name, from ``torch.profiler`` over ``calls`` calls.  A trace now and
+    then comes back empty or short of events (a count that is not a
+    multiple of ``calls``): take another, up to three; each name's time is
+    its mean per launch times its launches per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace now and then comes back empty: take another
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         rows = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-        if rows:
+        whole = all(e.count % calls == 0 for e in rows)
+        if rows and whole:
             break
+    if not whole:
+        print(f"   (the profiler dropped events in three traces: launch "
+              f"counts {[e.count for e in rows]} for {calls} calls)",
+              flush=True)
+
     def short(key: str) -> str:
         m = re.search(r"(\w+[Kk]ernel\w*)", key)
         return m.group(1) if m else key[:40]
 
-    parts = ", ".join(f"{short(e.key)} {dev_us(e) / calls / 1e3:.4f}"
-                      for e in sorted(rows, key=dev_us, reverse=True))
-    print(f"   {label}, device ms per call by kernel: {parts or 'none'}",
+    return {short(e.key): dev_us(e) / e.count * max(1, round(e.count / calls))
+            / 1e3 for e in sorted(rows, key=dev_us, reverse=True)}
+
+
+def profile_calls(label: str, fn, calls: int) -> float:
+    """``device_times`` printed; returns their sum."""
+    parts = device_times(fn, calls)
+    print(f"   {label}, device ms per call by kernel: "
+          + (", ".join(f"{k} {v:.4f}" for k, v in parts.items()) or "none"),
           flush=True)
-    return sum(dev_us(e) for e in rows) / calls / 1e3
+    return sum(parts.values())
 
 
 def time_segment(dev, so, kref, kops, build, vals: torch.Tensor,
@@ -1357,13 +1568,15 @@ class Launches:
 
     def reset(self) -> None:
         bp, kd, hj, na, so = self.mods
-        bp.launches = kd.launches = kd.knn_launches = so.launches = 0
+        bp.launches = bp.keys_launches = 0
+        kd.launches = kd.knn_launches = so.launches = 0
         hj.build_launches = hj.probe_launches = 0
         na.mean_launches = na.mode_launches = 0
 
     def read(self) -> dict:
         bp, kd, hj, na, so = self.mods
-        return {"bloom_probe": bp.launches, "masked_distance": kd.launches,
+        return {"bloom_probe": bp.keys_launches,
+                "masked_distance": kd.launches,
                 "masked_knn": kd.knn_launches,
                 "hash_join_build": hj.build_launches,
                 "hash_join_probe": hj.probe_launches,
@@ -1375,21 +1588,32 @@ class Launches:
 @contextlib.contextmanager
 def recording(kops):
     """Keep, for the kernel-time phase, the main path's calls into the
-    kernels: the bloom probes' sizes, every join's sizes and the keys of the
-    largest join by build keys and by probe keys, the largest mean input,
-    the largest mode call's ids and targets (and a count of mode calls
-    handed values instead of ids: a gather outside the kernel), and every
-    segment reduction's size with the largest one's values and ids."""
-    rec = {"bloom": Counter(), "join": [], "join_keys": None,
-           "join_probe_keys": None, "mean": None, "mode": None,
+    kernels: every bloom probe's bits, keys and sizes (and a count of probes
+    handed keys folded on the host), every join's sizes and the keys of the
+    largest join by build keys and by probe keys, the largest mean and mode
+    calls' ids and targets (and counts of mean and mode calls handed values
+    instead of ids: a gather outside the kernel), and every segment
+    reduction's size with the largest one's values and ids."""
+    rec = {"bloom": Counter(), "bloom_calls": [], "bloom_folded_calls": 0,
+           "join": [], "join_keys": None, "join_probe_keys": None,
+           "mean": None, "mean_values_calls": 0, "mode": None,
            "mode_values_calls": 0, "segment": [], "segment_args": None}
-    names = ("_bloom_probe_cuda", "_hash_join_cuda", "_neighbor_mean_cuda",
-             "_neighbor_mode_cuda", "_segment_reduce_cuda")
+    names = ("_bloom_probe_cuda", "_bloom_probe_keys_cuda",
+             "_hash_join_cuda", "_neighbor_mean_cuda", "_neighbor_mode_cuda",
+             "_segment_reduce_cuda")
     orig = {n: getattr(kops, n) for n in names}
 
     def bloom(bits, folded, **kw):
-        rec["bloom"][(folded.shape[0], kw["num_hashes"], kw["log2m"])] += 1
+        rec["bloom_folded_calls"] += 1
         return orig["_bloom_probe_cuda"](bits, folded, **kw)
+
+    def bloom_keys(bits, keys, **kw):
+        rec["bloom"][(keys.shape[0], kw["num_hashes"], kw["log2m"])] += 1
+        # neither is written again: the filter replaces its device bits
+        # after an insert, and each probe uploads its keys anew
+        rec["bloom_calls"].append((bits, keys, kw["num_hashes"],
+                                   kw["log2m"]))
+        return orig["_bloom_probe_keys_cuda"](bits, keys, **kw)
 
     def join(b, p):
         rec["join"].append((b.shape[0], p.shape[0]))
@@ -1399,17 +1623,14 @@ def recording(kops):
                 rec[key] = (b.cpu().numpy(), p.cpu().numpy())
         return orig["_hash_join_cuda"](b, p)
 
-    def mean(vals):
-        if rec["mean"] is None or vals.numel() > rec["mean"].numel():
-            rec["mean"] = vals.clone()
-        return orig["_neighbor_mean_cuda"](vals)
-
-    def mode(vals, targets=None):
-        if targets is None:
-            rec["mode_values_calls"] += 1
-        elif rec["mode"] is None or vals.numel() > rec["mode"][0].numel():
-            rec["mode"] = (vals.clone(), targets)
-        return orig["_neighbor_mode_cuda"](vals, targets)
+    def ids_call(key: str):
+        def call(vals, targets=None):
+            if targets is None:
+                rec[f"{key}_values_calls"] += 1
+            elif rec[key] is None or vals.numel() > rec[key][0].numel():
+                rec[key] = (vals.clone(), targets)
+            return orig[f"_neighbor_{key}_cuda"](vals, targets)
+        return call
 
     def segment(vals, seg, num_segments, op):
         rec["segment"].append((seg.shape[0], num_segments, op))
@@ -1419,8 +1640,10 @@ def recording(kops):
             rec["segment_args"] = (vals.clone(), seg.clone(), num_segments)
         return orig["_segment_reduce_cuda"](vals, seg, num_segments, op)
 
-    patched = {"_bloom_probe_cuda": bloom, "_hash_join_cuda": join,
-               "_neighbor_mean_cuda": mean, "_neighbor_mode_cuda": mode,
+    patched = {"_bloom_probe_cuda": bloom,
+               "_bloom_probe_keys_cuda": bloom_keys, "_hash_join_cuda": join,
+               "_neighbor_mean_cuda": ids_call("mean"),
+               "_neighbor_mode_cuda": ids_call("mode"),
                "_segment_reduce_cuda": segment}
     for n, fn in patched.items():
         setattr(kops, n, fn)
@@ -1749,6 +1972,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     try:
+        from repro_torch.core import bloom as bloom_mod
         from repro_torch.core import executor
         from repro_torch.core import extensions as ext
         from repro_torch import imputers
@@ -1832,9 +2056,21 @@ def main() -> int:
                        "the wifi spine's shape", split=split)
             fused = "targets" in inspect.signature(
                 na.neighbor_mode).parameters
-            time_mode(na, kref, *knn_mode_inputs(wifi, "wifi", "wifi.lid",
-                                                 dev, knn_mod, kops),
+            time_mode(na, kref, *knn_ids_inputs(wifi, "wifi", "wifi.lid",
+                                                dev, knn_mod, kops, np.int64),
                       fused=fused)
+            fused = "targets" in inspect.signature(
+                na.neighbor_mean).parameters
+            time_mean(na, kref, *knn_ids_inputs(
+                cdc, "labs", "labs.creatine", dev, knn_mod, kops,
+                np.float32), fused=fused)
+            keys_route = hasattr(bp, "bloom_probe_keys")
+            bloom, keys = main_like_bloom(dev, bloom_mod)
+            if keys_route:
+                time_bloom(dev, bp, kref, fold64, bloom._device_bits(),
+                           torch.from_numpy(keys).to(dev), bloom.num_hashes,
+                           bloom.log2m)
+            time_bloom_op(bloom, keys, bp, fold64, keys_route)
             if hasattr(build.library(), "quipt_noop"):
                 print(f"   empty-kernel floor: {floor_ms(build):.4f} ms",
                       flush=True)
@@ -1951,14 +2187,26 @@ def main() -> int:
             check_compound(ds, small, small_q, dev, mods, ext)
 
     with phase("kernel times at the main path's shapes"):
+        if rec["bloom_folded_calls"]:
+            raise AssertionError(f"{rec['bloom_folded_calls']} bloom probes "
+                                 f"on the main paths folded their keys on "
+                                 f"the host")
         n, num_hashes, log2m = max(rec["bloom"])
         print(f"   main-path bloom probes: {sum(rec['bloom'].values())} "
               f"calls, largest n={n}", flush=True)
+        bits, keys, _, _ = max(rec["bloom_calls"],
+                               key=lambda c: c[1].shape[0])
+        bloom_t = time_bloom(dev, bp, kref, fold64, bits, keys, num_hashes,
+                             log2m)
+        bloom = bloom_mod.BloomFilter("largest", log2m=log2m,
+                                      num_hashes=num_hashes, device=dev)
+        bloom.load_bits(bits.cpu().numpy().view(np.uint32))
+        time_bloom_op(bloom, keys.cpu().numpy(), bp, fold64, True)
+        time_bloom_calls(rec["bloom_calls"], bloom_mod, bp, fold64, dev)
         sizes = rec["join"]
         print(f"   main-path hash joins: {len(sizes)} calls, largest build "
               f"{max(s[0] for s in sizes)}, largest probe "
               f"{max(s[1] for s in sizes)}", flush=True)
-        bloom_t = time_bloom(dev, bp, kref, fold64, n, num_hashes, log2m)
         dist_t = time_distance(kd, kref, *main_shapes["wifi"])
         knn_t = time_knn(kd, kref, kops, *main_shapes["wifi"])
         build_t, probe_t = time_join(dev, hj, kref, kops, *rec["join_keys"])
@@ -1966,11 +2214,13 @@ def main() -> int:
                    "the largest probe")
         time_probe(dev, hj, kref, kops, *spine_like_keys(),
                    "the wifi spine's shape")
-        if rec["mode_values_calls"]:
-            raise AssertionError(f"{rec['mode_values_calls']} mode calls on "
-                                 f"the main paths gathered their values "
-                                 f"outside the kernel")
-        mean_t, mode_t = time_neighbor(na, kref, rec["mean"], *rec["mode"])
+        for key in ("mean", "mode"):
+            if rec[f"{key}_values_calls"]:
+                raise AssertionError(
+                    f"{rec[f'{key}_values_calls']} {key} calls on the main "
+                    f"paths gathered their values outside the kernel")
+        mean_t = time_mean(na, kref, *rec["mean"])
+        mode_t = time_mode(na, kref, *rec["mode"])
         floor = floor_ms(build)
         calls = rec["segment"]
         print(f"   main-path segment reductions: {len(calls)} calls "

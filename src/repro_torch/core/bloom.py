@@ -7,14 +7,18 @@ executor: the filter is *complete* once (i) the operand side has been fully
 consumed (hash table built / relation scanned) AND (ii) the attribute's
 missing counter is zero (paper §4, last paragraph).
 
-Inserts stay numpy on the host.  Probes fold the keys on the host and run
-on the filter's device (the ``bloom_probe`` CUDA kernel on a card); the
-device copy of the bitset is refreshed on the first probe after an insert,
-not on every probe.
+Inserts stay numpy on the host.  Probes run on the filter's device: on a
+card the int64 keys go up as they are (through this thread's pinned
+staging buffer), the ``bloom_probe_keys`` CUDA kernel folds and probes
+them, and the flags come back through the same buffer, with one
+synchronisation a probe.  The device copy of the bitset is refreshed on
+the first probe after an insert, not on every probe.  The ``numpy`` member
+folds and probes on the host.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import numpy as np
@@ -22,9 +26,40 @@ import torch
 
 from repro_torch.analysis.lockcheck import make_lock
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.hashing import fold64, hash_positions_np
+from repro_torch.kernels.hashing import hash_positions_np
 
 __all__ = ["BloomFilter"]
+
+# each thread's pinned staging buffers, by device: the executor probes
+# from several morsel threads at once, and a buffer is reused only after
+# its thread's previous probe has synchronised
+_staging = threading.local()
+
+
+class _Staging:
+    """Pinned host buffers for one thread's probes on one card: the int64
+    keys going up and the flags coming down, grown to the next power of two
+    as needed, and the event the probe's one synchronisation waits on."""
+
+    def __init__(self):
+        self.keys = torch.empty(0, dtype=torch.int64, pin_memory=True)
+        self.flags = torch.empty(0, dtype=torch.bool, pin_memory=True)
+        self.done = torch.cuda.Event()
+
+    def reserve(self, n: int) -> None:
+        if n > self.keys.shape[0]:
+            cap = 1 << (n - 1).bit_length()
+            self.keys = torch.empty(cap, dtype=torch.int64, pin_memory=True)
+            self.flags = torch.empty(cap, dtype=torch.bool, pin_memory=True)
+
+
+def _staging_for(device: torch.device) -> _Staging:
+    held = getattr(_staging, "by_device", None)
+    if held is None:
+        held = _staging.by_device = {}
+    if device.index not in held:
+        held[device.index] = _Staging()
+    return held[device.index]
 
 
 class BloomFilter:
@@ -78,20 +113,35 @@ class BloomFilter:
         keys = np.asarray(keys)
         if keys.size == 0:
             return np.zeros(0, dtype=bool)
-        folded = fold64(keys)
         impl = kops.resolve_bloom_impl(impl, self.device)
         if impl == "numpy":
-            return kops.bloom_probe(self.bits, folded, impl="numpy",
-                                    num_hashes=self.num_hashes,
-                                    log2m=self.log2m)
-        out = kops.bloom_probe(
-            self._device_bits(),
-            torch.from_numpy(folded.view(np.int32)).to(self.device),
-            num_hashes=self.num_hashes,
-            log2m=self.log2m,
-            impl=impl,
-        )
-        return out.cpu().numpy()
+            return kops.bloom_probe_keys(self.bits, keys, impl="numpy",
+                                         num_hashes=self.num_hashes,
+                                         log2m=self.log2m)
+        # the cast fold64 makes; no copy for an int64 column
+        keys = np.ascontiguousarray(keys.astype(np.int64, copy=False))
+        probe = dict(num_hashes=self.num_hashes, log2m=self.log2m, impl=impl)
+        if self.device.type == "cpu":
+            return kops.bloom_probe_keys(self._device_bits(),
+                                         torch.from_numpy(keys),
+                                         **probe).numpy()
+        n = len(keys)
+        stage = _staging_for(self.device)
+        stage.reserve(n)
+        stage.keys[:n].copy_(torch.from_numpy(keys))
+        with torch.cuda.device(self.device):
+            try:
+                out = kops.bloom_probe_keys(
+                    self._device_bits(),
+                    stage.keys[:n].to(self.device, non_blocking=True),
+                    **probe)
+                stage.flags[:n].copy_(out, non_blocking=True)
+            finally:
+                # the one synchronisation: the flags are on the host and
+                # both copies are done, so the buffers may be reused
+                stage.done.record()
+                stage.done.synchronize()
+        return stage.flags[:n].numpy().copy()
 
     def mark_complete(self) -> None:
         # monotonic bool flip by the owning executor thread; readers

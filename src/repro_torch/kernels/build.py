@@ -42,6 +42,8 @@ _c_float = ctypes.c_float
 _SIGNATURES = {
     "quipt_bloom_probe": [_c_void_p, _c_void_p, _c_void_p, _c_int64,
                           _c_int, _c_int, _c_void_p],
+    "quipt_bloom_probe_keys": [_c_void_p, _c_void_p, _c_void_p, _c_int64,
+                               _c_int, _c_int, _c_void_p],
     "quipt_masked_distance": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
                               _c_void_p, _c_int, _c_int, _c_int, _c_void_p],
     "quipt_masked_knn": [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
@@ -59,8 +61,8 @@ _SIGNATURES = {
                          _c_void_p],
     "quipt_join_emit": [_c_void_p, _c_int64, _c_void_p, _c_int64,
                         _c_void_p, _c_void_p, _c_void_p],
-    "quipt_neighbor_mean": [_c_void_p, _c_int64, _c_int, _c_void_p,
-                            _c_void_p],
+    "quipt_neighbor_mean": [_c_void_p, _c_void_p, _c_int64, _c_int,
+                            _c_void_p, _c_void_p],
     "quipt_neighbor_mode": [_c_void_p, _c_void_p, _c_int64, _c_int,
                             _c_void_p, _c_void_p],
     "quipt_noop": [_c_void_p],

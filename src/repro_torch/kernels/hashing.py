@@ -1,18 +1,21 @@
 """Shared hash math for the bloom filter (build + probe must agree bit-for-bit).
 
 Multiply-shift hashing over uint32 lanes (the CUDA kernel
-``csrc/bloom_probe.cu`` repeats it with the same constants).  An int64 key
-is folded to uint32 via ``lo ^ (hi * PHI)`` and the i-th hash is
-``(folded * A_i + B_i) >> (32 - log2m)`` with odd multipliers.
+``csrc/bloom_probe.cu`` repeats it with the same constants, the fold
+included).  An int64 key is folded to uint32 via ``lo ^ (hi * PHI)`` and
+the i-th hash is ``(folded * A_i + B_i) >> (32 - log2m)`` with odd
+multipliers.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["MULTIPLIERS", "OFFSETS", "fold64", "hash_positions_np", "MAX_HASHES"]
+__all__ = ["MULTIPLIERS", "OFFSETS", "PHI", "fold64", "hash_positions_np",
+           "MAX_HASHES"]
 
-_PHI = np.uint32(0x9E3779B9)
+PHI = 0x9E3779B9  # the fold's multiplier
+_PHI = np.uint32(PHI)
 
 # Odd multipliers / offsets (splitmix-derived), enough for k <= 8 hashes.
 MULTIPLIERS = np.array(
@@ -29,7 +32,8 @@ MAX_HASHES = len(MULTIPLIERS)
 
 
 def fold64(keys) -> np.ndarray:
-    """Fold int64 keys to uint32 (numpy); probes take the folded keys."""
+    """Fold int64 keys to uint32 (numpy): the ``numpy`` probe and the
+    inserts; the device probes fold on the card (``ref.fold64_ref``)."""
     k = np.asarray(keys).astype(np.int64)
     lo = (k & np.int64(0xFFFFFFFF)).astype(np.uint32)
     hi = ((k >> np.int64(32)) & np.int64(0xFFFFFFFF)).astype(np.uint32)

@@ -6,9 +6,10 @@ and ``neighbor_mode_pallas`` (``repro/kernels/neighbor_agg.py``).  A CUDA
 tensor launches the kernel on the current stream; a CPU tensor takes the
 plain torch version (``ref.neighbor_mean_ref`` / ``ref.neighbor_mode_ref``),
 since the kernels exist only on the card.  The mean matches its plain
-version bit for bit, the mode exactly.  The mode also takes the KNN's
-``(b, k)`` neighbour ids with the reference rows' targets and gathers the
-values itself (its plain version: ``ref.neighbor_mode_ref(targets[ids])``).
+version bit for bit, the mode exactly.  Both also take the KNN's ``(b, k)``
+neighbour ids with the reference rows' targets and gather the values
+themselves (their plain versions: ``ref.neighbor_mean_ref(targets[ids])``
+and ``ref.neighbor_mode_ref(targets[ids])``).
 """
 
 from __future__ import annotations
@@ -51,18 +52,38 @@ def _launch(entry: str, device: torch.device, *args) -> None:
     build.check(rc, entry)
 
 
-def neighbor_mean(vals: torch.Tensor) -> torch.Tensor:
+def _check_targets(name: str, ids: torch.Tensor, targets: torch.Tensor,
+                   dtype: torch.dtype) -> None:
+    if targets.dtype != dtype or targets.dim() != 1 \
+            or not targets.is_contiguous():
+        raise ValueError(f"{name} takes contiguous (n_ref,) {dtype} targets, "
+                         f"got {targets.dtype} {tuple(targets.shape)}")
+    if targets.device != ids.device:
+        raise ValueError(f"ids on {ids.device}, targets on {targets.device}")
+
+
+def neighbor_mean(vals: torch.Tensor,
+                  targets: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``(b, k)`` float32 neighbour targets → ``(b,)`` float32 row means
-    (the sum in column order, then one division by ``k``)."""
+    (the sum in column order, then one division by ``k``).  With
+    ``targets`` ``(n_ref,)`` float32, ``vals`` holds the neighbours' int64
+    ids into it, each in ``[0, n_ref)``, and the kernel gathers the
+    values."""
     global mean_launches
-    _check("neighbor_mean", vals, torch.float32)
+    if targets is None:
+        _check("neighbor_mean", vals, torch.float32)
+    else:
+        _check("neighbor_mean", vals, torch.int64)
+        _check_targets("neighbor_mean", vals, targets, torch.float32)
     if vals.device.type == "cpu":
-        return _ref.neighbor_mean_ref(vals)
+        return _ref.neighbor_mean_ref(vals if targets is None
+                                      else targets[vals])
     out = torch.empty(vals.shape[0], dtype=torch.float32, device=vals.device)
     if vals.shape[0] == 0:
         return out
     _launch("quipt_neighbor_mean", vals.device, vals.data_ptr(),
-            vals.shape[0], vals.shape[1], out.data_ptr())
+            None if targets is None else targets.data_ptr(), vals.shape[0],
+            vals.shape[1], out.data_ptr())
     mean_launches += 1
     return out
 
@@ -78,14 +99,7 @@ def neighbor_mode(vals: torch.Tensor,
     if vals.shape[1] == 0:
         raise ValueError("neighbor_mode needs at least one column")
     if targets is not None:
-        if targets.dtype != torch.int64 or targets.dim() != 1 \
-                or not targets.is_contiguous():
-            raise ValueError(f"neighbor_mode takes contiguous (n_ref,) int64 "
-                             f"targets, got {targets.dtype} "
-                             f"{tuple(targets.shape)}")
-        if targets.device != vals.device:
-            raise ValueError(f"ids on {vals.device}, targets on "
-                             f"{targets.device}")
+        _check_targets("neighbor_mode", vals, targets, torch.int64)
     if vals.device.type == "cpu":
         return _ref.neighbor_mode_ref(vals if targets is None
                                       else targets[vals])

@@ -33,11 +33,14 @@ import torch
 from repro_torch.core.env import env_choice
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.bloom_probe import bloom_probe as _bloom_probe_cuda
+from repro_torch.kernels.bloom_probe import (
+    bloom_probe_keys as _bloom_probe_keys_cuda,
+)
 from repro_torch.kernels.flash_attention import (
     flash_attention as _flash_attention_cuda,
 )
 from repro_torch.kernels.hash_join import hash_join as _hash_join_cuda
-from repro_torch.kernels.hashing import MULTIPLIERS, OFFSETS
+from repro_torch.kernels.hashing import MULTIPLIERS, OFFSETS, fold64
 from repro_torch.kernels.knn_distance import (
     masked_distance as _masked_distance_cuda,
     masked_knn as _masked_knn_cuda,
@@ -54,6 +57,7 @@ from repro_torch.kernels.segment_ops import (
 
 __all__ = [
     "bloom_probe",
+    "bloom_probe_keys",
     "flash_attention",
     "hash_join_match",
     "masked_distance",
@@ -152,6 +156,24 @@ def bloom_probe(bits, folded, *, num_hashes: int, log2m: int,
         return _bloom_probe_cuda(bits, folded, num_hashes=num_hashes,
                                  log2m=log2m)
     return _ref.bloom_probe_ref(bits, folded, num_hashes, log2m)
+
+
+def bloom_probe_keys(bits, keys, *, num_hashes: int, log2m: int,
+                     impl: Optional[str] = None):
+    """``bloom_probe`` of int64 keys, folded by the member itself:
+    ``numpy`` folds on the host (``hashing.fold64``) and probes there;
+    ``ref``/``cuda`` take an int64 key tensor and fold on its device
+    (``ref.bloom_probe_keys_ref`` or the kernel, which folds in its
+    threads)."""
+    device = bits.device if isinstance(bits, torch.Tensor) else torch.device("cpu")
+    impl = resolve_bloom_impl(impl, device)
+    if impl == "numpy":
+        return bloom_probe(bits, fold64(_host(keys)), num_hashes=num_hashes,
+                           log2m=log2m, impl="numpy")
+    if impl == "cuda":
+        return _bloom_probe_keys_cuda(bits, keys, num_hashes=num_hashes,
+                                      log2m=log2m)
+    return _ref.bloom_probe_keys_ref(bits, keys, num_hashes, log2m)
 
 
 def sort_join(build_keys: np.ndarray, probe_keys: np.ndarray
@@ -280,8 +302,9 @@ def neighbor_aggregate(neigh, *, categorical: bool,
     returned as a host float64 array: float attributes take the per-row
     mean, integer (categorical) attributes the per-row mode with ties to
     the smallest value.  With ``targets`` (the reference rows' values),
-    ``neigh`` holds the neighbours' ids into it: the ``cuda`` mode gathers
-    inside its kernel, every other member gathers first.
+    ``neigh`` holds the neighbours' ids into it: the ``cuda`` mode (integer
+    targets) and mean (float targets) gather inside their kernels, every
+    other member gathers first.
 
     ``numpy`` (default) is the reference package's numpy member, bit for
     bit (float64 mean).  ``ref`` and ``cuda`` take the matrix as a tensor
@@ -328,10 +351,16 @@ def _neighbor_aggregate_torch(neigh, categorical: bool, impl: str,
         return np.zeros(0, dtype=np.float64)
     if targets is not None:
         targets = _as_tensor(targets).to(vals.device)
-        if categorical and impl == "cuda" and not targets.is_floating_point():
+        floating = targets.is_floating_point()
+        if impl == "cuda" and categorical != floating:
             # the kernel gathers the neighbours' values itself
-            out = _neighbor_mode_cuda(vals.to(torch.int64).contiguous(),
-                                      targets.to(torch.int64).contiguous())
+            ids = vals.to(torch.int64).contiguous()
+            if categorical:
+                out = _neighbor_mode_cuda(
+                    ids, targets.to(torch.int64).contiguous())
+            else:
+                out = _neighbor_mean_cuda(
+                    ids, targets.to(torch.float32).contiguous())
             return out.cpu().numpy().astype(np.float64)
         vals = targets[vals]
     if categorical:

@@ -21,11 +21,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.hashing import MULTIPLIERS, OFFSETS
+from repro_torch.kernels.hashing import MULTIPLIERS, OFFSETS, PHI
 
 __all__ = [
     "attention_ref",
+    "bloom_probe_keys_ref",
     "bloom_probe_ref",
+    "fold64_ref",
     "hash_join_build_ref",
     "hash_join_group_ref",
     "hash_join_probe_ref",
@@ -51,14 +53,16 @@ def _mul_lo32(x: torch.Tensor, c: int) -> torch.Tensor:
     return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _U32
 
 
-def bloom_probe_ref(bits: torch.Tensor, folded: torch.Tensor,
-                    num_hashes: int, log2m: int) -> torch.Tensor:
-    """bits: ``(2**log2m // 32,)`` int32 holding the uint32 bitset words;
-    folded: ``(n,)`` int32 holding the uint32 host-folded keys
-    (``hashing.fold64``).  True iff all ``num_hashes`` multiply-shift bits
-    are set.  Torch has no uint32 ``+``/``>>``, so the math runs in int64
-    masked to 32 bits."""
-    f = folded.to(torch.int64) & _U32
+def fold64_ref(keys: torch.Tensor) -> torch.Tensor:
+    """``(n,)`` int64 keys → ``(n,)`` int64 holding ``hashing.fold64``'s
+    uint32 bits, ``lo ^ (hi * PHI)`` in uint32 wraparound."""
+    lo = keys & _U32
+    hi = (keys >> 32) & _U32
+    return lo ^ _mul_lo32(hi, PHI)
+
+
+def _probe_folded(bits: torch.Tensor, f: torch.Tensor, num_hashes: int,
+                  log2m: int) -> torch.Tensor:
     ok = torch.ones(f.shape, dtype=torch.bool, device=f.device)
     for i in range(num_hashes):
         h = (_mul_lo32(f, int(MULTIPLIERS[i])) + int(OFFSETS[i])) & _U32
@@ -66,6 +70,24 @@ def bloom_probe_ref(bits: torch.Tensor, folded: torch.Tensor,
         word = bits[pos >> 5].to(torch.int64) & _U32
         ok &= ((word >> (pos & 31)) & 1) == 1
     return ok
+
+
+def bloom_probe_ref(bits: torch.Tensor, folded: torch.Tensor,
+                    num_hashes: int, log2m: int) -> torch.Tensor:
+    """bits: ``(2**log2m // 32,)`` int32 holding the uint32 bitset words;
+    folded: ``(n,)`` int32 holding the uint32 host-folded keys
+    (``hashing.fold64``).  True iff all ``num_hashes`` multiply-shift bits
+    are set.  Torch has no uint32 ``+``/``>>``, so the math runs in int64
+    masked to 32 bits."""
+    return _probe_folded(bits, folded.to(torch.int64) & _U32, num_hashes,
+                         log2m)
+
+
+def bloom_probe_keys_ref(bits: torch.Tensor, keys: torch.Tensor,
+                         num_hashes: int, log2m: int) -> torch.Tensor:
+    """``bloom_probe_ref`` of ``(n,)`` int64 keys, folded on their device
+    (``fold64_ref``) instead of on the host."""
+    return _probe_folded(bits, fold64_ref(keys), num_hashes, log2m)
 
 
 def masked_distance_ref(q: torch.Tensor, qm: torch.Tensor, r: torch.Tensor,

@@ -54,6 +54,104 @@ def test_bloom_probe_kernel_equals_plain(cuda_device, log2m, num_hashes, n):
     assert torch.equal(got, want)
 
 
+_EDGE_KEYS = np.array([0, -1, 2**31, -(2**31), 2**32, -(2**63), 2**63 - 1],
+                      dtype=np.int64)
+
+
+@pytest.mark.parametrize("log2m", [14, 20, 23])
+@pytest.mark.parametrize("num_hashes", range(1, 9))
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 1023, 2**16 + 3])
+def test_bloom_probe_keys_kernel_equals_plain(cuda_device, log2m, num_hashes,
+                                              n):
+    """The int64-key kernel (the fold inside) flag for flag against its
+    plain version, on keys that start on a 16-byte boundary and on the
+    view ``keys[1:]``, which starts 8 bytes past one; and against the
+    folded-key kernel on the host-folded keys."""
+    rng = np.random.default_rng(log2m * 1000 + num_hashes * 100 + n)
+    bits = rng.integers(0, 2**32, (1 << log2m) // 32, dtype=np.uint32)
+    keys = np.concatenate([_EDGE_KEYS, rng.integers(
+        -(2**62), 2**62, n).astype(np.int64)])[:n + 1]
+    b = torch.from_numpy(bits.view(np.int32)).to(cuda_device)
+    kt = torch.from_numpy(keys).to(cuda_device)
+    for view in (kt[:n], kt[1:]):
+        before = bp.keys_launches
+        got = bp.bloom_probe_keys(b, view, num_hashes=num_hashes, log2m=log2m)
+        torch.cuda.synchronize()
+        assert bp.keys_launches == before + (n > 0)
+        assert torch.equal(got, kref.bloom_probe_keys_ref(b, view, num_hashes,
+                                                          log2m))
+    f = torch.from_numpy(fold64(keys[:n]).view(np.int32)).to(cuda_device)
+    assert torch.equal(
+        bp.bloom_probe_keys(b, kt[:n], num_hashes=num_hashes, log2m=log2m),
+        bp.bloom_probe(b, f, num_hashes=num_hashes, log2m=log2m))
+
+
+def test_bloom_might_contain_on_card(cuda_device):
+    """``might_contain`` on a card equals the numpy member, launches the
+    keys kernel once and never the folded-key one, and makes its one
+    synchronisation an event synchronise: with synchronising calls made
+    errors, it raises nothing."""
+    from repro_torch.core.bloom import BloomFilter
+
+    rng = np.random.default_rng(4)
+    bloom = BloomFilter("x", device=cuda_device)
+    bloom.insert(rng.integers(0, 8000, 4000))
+    keys = rng.integers(0, 8000, 100_003)
+    want = bloom.might_contain(keys, impl="numpy")
+    np.testing.assert_array_equal(bloom.might_contain(keys), want)
+    torch.cuda.synchronize()
+    before = (bp.launches, bp.keys_launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = bloom.might_contain(keys[1:])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (bp.launches, bp.keys_launches) == (before[0], before[1] + 1)
+    np.testing.assert_array_equal(got, want[1:])
+    for dtype in (np.int32, np.float64):
+        np.testing.assert_array_equal(
+            bloom.might_contain(keys.astype(dtype)), want)
+
+
+def test_bloom_might_contain_from_threads(cuda_device):
+    """Morsel threads probe one filter at once, each through its own pinned
+    buffers: with more threads than cores and a short switch interval,
+    every thread's flags still equal the numpy member's for its keys."""
+    import os
+    import sys
+    import threading
+
+    from repro_torch.core.bloom import BloomFilter
+
+    rng = np.random.default_rng(5)
+    bloom = BloomFilter("x", device=cuda_device)
+    bloom.insert(rng.integers(0, 8000, 4000))
+    workers = 2 * (os.cpu_count() or 4)
+    cases = [rng.integers(0, 8000, int(rng.integers(1, 200_000)))
+             for _ in range(workers)]
+    wants = [bloom.might_contain(keys, impl="numpy") for keys in cases]
+    bad = []
+
+    def work(i):
+        for _ in range(20):
+            if not np.array_equal(bloom.might_contain(cases[i]), wants[i]):
+                bad.append(i)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(i,))
+                   for i in range(workers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert bad == []
+
+
 @pytest.mark.parametrize("nq,nr,d", [
     (1, 1, 1), (3, 5, 7), (64, 64, 32), (130, 200, 96), (128, 256, 128),
     (1024, 5000, 4), (1000, 3000, 9),
@@ -148,6 +246,11 @@ def test_wrappers_reject_bad_input(cuda_device):
         bp.bloom_probe(bits, torch.zeros(3, dtype=torch.int64,
                                          device=cuda_device),
                        num_hashes=4, log2m=14)
+    for keys in (torch.zeros(3, dtype=torch.int32, device=cuda_device),
+                 torch.zeros(3, dtype=torch.int64),
+                 torch.zeros(6, dtype=torch.int64, device=cuda_device)[::2]):
+        with pytest.raises(ValueError):
+            bp.bloom_probe_keys(bits, keys, num_hashes=4, log2m=14)
 
 
 # --------------------------------------------------------------------------- #
@@ -327,6 +430,50 @@ def test_neighbor_mean_kernel_bitwise_equals_plain(cuda_device, b, k):
     assert torch.equal(got, kref.neighbor_mean_ref(vals))
 
 
+@pytest.mark.parametrize("k", range(1, 21))
+@pytest.mark.parametrize("b", [0, 1, 63, 64, 65, 1024, 5000])
+def test_neighbor_mean_ids_form_bitwise_equals_plain(cuda_device, b, k):
+    """The mean's ids form (the gather inside the kernel) bit for bit
+    against ``neighbor_mean_ref(targets[ids])``, across the templated k
+    (1-16), the generic path above and the 64-row blocks' edges."""
+    rng = np.random.default_rng(b * 100 + k)
+    targets = torch.from_numpy(rng.normal(0.0, 100.0, 3 * b + 7).astype(
+        np.float32)).to(cuda_device)
+    ids = torch.from_numpy(rng.integers(0, len(targets), (b, k))).to(
+        cuda_device)
+    before = na.mean_launches
+    got = na.neighbor_mean(ids, targets)
+    torch.cuda.synchronize()
+    assert na.mean_launches == before + (b > 0)
+    assert got.shape == (b,)
+    assert torch.equal(got, kref.neighbor_mean_ref(targets[ids]))
+    assert torch.equal(got, na.neighbor_mean(targets[ids]))
+
+
+def test_neighbor_aggregate_gathers_in_the_mean_kernel(cuda_device):
+    """A float attribute's ids and float32 targets: the cuda member
+    launches the mean kernel once and no separate gather."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(9)
+    targets = torch.from_numpy(rng.normal(size=5000).astype(np.float32)).to(
+        cuda_device)
+    ids = torch.from_numpy(rng.integers(0, 5000, (1024, 5))).to(cuda_device)
+    kops.neighbor_aggregate(ids, categorical=False, impl="cuda",
+                            targets=targets)
+    before = na.mean_launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = kops.neighbor_aggregate(ids, categorical=False, impl="cuda",
+                                      targets=targets)
+        torch.cuda.synchronize()
+    assert na.mean_launches == before + 1
+    names = [e.key for e in prof.key_averages()
+             if "Memcpy" not in e.key and "Memset" not in e.key]
+    assert not any("index" in n.lower() for n in names), names
+    want = kref.neighbor_mean_ref(targets[ids]).cpu().numpy()
+    np.testing.assert_array_equal(got, want.astype(np.float64))
+
+
 @pytest.mark.parametrize("b,k,classes", [(1, 1, 1), (64, 5, 3), (1024, 5, 7),
                                          (300, 9, 1000), (4097, 4, 2)])
 def test_neighbor_mode_kernel_equals_plain(cuda_device, b, k, classes):
@@ -405,6 +552,15 @@ def test_neighbor_wrappers_reject_bad_input(cuda_device):
                                      device=cuda_device))
     with pytest.raises(ValueError):
         na.neighbor_mean(torch.zeros((3, 2), device=cuda_device).t())
+    ids = torch.zeros((2, 3), dtype=torch.int64, device=cuda_device)
+    for targets in (torch.zeros(4, dtype=torch.float64, device=cuda_device),
+                    torch.zeros(4, dtype=torch.float32),
+                    torch.zeros(8, device=cuda_device)[::2]):
+        with pytest.raises(ValueError):
+            na.neighbor_mean(ids, targets)
+    with pytest.raises(ValueError):
+        na.neighbor_mean(ids.to(torch.int32),
+                         torch.zeros(4, device=cuda_device))
 
 
 # --------------------------------------------------------------------------- #

@@ -186,6 +186,31 @@ def test_float_aggregate_through_ids(impl):
         kops.neighbor_aggregate(targets[ids], categorical=False, impl=impl))
 
 
+@pytest.mark.parametrize("k", range(1, 34))
+def test_mean_through_ids_matches_reference_members(k):
+    """A float attribute's KNN ids and float32 targets: the ``ref`` member
+    (and ``cuda``, whose wrapper on a CPU tensor takes the plain version
+    of the fused kernel) within the reference's 1e-6 of the reference's
+    members on the gathered values."""
+    rng = np.random.default_rng(100 + k)
+    targets = rng.normal(50.0, 20.0, 3000).astype(np.float32)
+    ids = rng.integers(0, len(targets), (97, k))
+    got = kops.neighbor_aggregate(ids, categorical=False, impl="ref",
+                                  targets=targets)
+    assert got.dtype == np.float64 and got.shape == (97,)
+    for jimpl in ("numpy", "ref"):
+        want = jax_kops.neighbor_aggregate(targets[ids], categorical=False,
+                                           impl=jimpl)
+        np.testing.assert_allclose(got, want, rtol=MEAN_TOL, atol=MEAN_TOL)
+    before = na.mean_launches
+    fused = na.neighbor_mean(torch.from_numpy(ids), torch.from_numpy(targets))
+    assert na.mean_launches == before
+    np.testing.assert_array_equal(fused.numpy().astype(np.float64), got)
+    np.testing.assert_array_equal(
+        kops.neighbor_aggregate(ids, categorical=False, impl="cuda",
+                                targets=targets), got)
+
+
 def test_wrappers_check_input():
     with pytest.raises(ValueError, match="float32"):
         na.neighbor_mean(torch.zeros((2, 3), dtype=torch.float64))
@@ -198,6 +223,12 @@ def test_wrappers_check_input():
     with pytest.raises(ValueError, match="targets"):
         na.neighbor_mode(torch.zeros((2, 3), dtype=torch.int64),
                          torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="targets"):
+        na.neighbor_mean(torch.zeros((2, 3), dtype=torch.int64),
+                         torch.zeros(4, dtype=torch.float64))
+    with pytest.raises(ValueError, match="int64"):
+        na.neighbor_mean(torch.zeros((2, 3), dtype=torch.int32),
+                         torch.zeros(4, dtype=torch.float32))
     with pytest.raises(ValueError, match="integer"):
         kops.neighbor_aggregate(np.zeros((2, 3)), categorical=True,
                                 impl="ref")
