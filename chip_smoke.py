@@ -66,6 +66,26 @@ host work, copy up, kernel and copy down; the mean's fused form beside
 the gather + values-form pair.  No bloom probe on the main paths may fold
 its keys on the host, and no mean may gather outside its kernel.
 
+Slice 9 is the serving stack: ``repro_torch.service.QuipService`` with
+four worker threads launching the kernels at once.  S1 serves exp8's
+skewed 40-query wifi stream (``serving_workload(seed=5)``) in slice 1's
+configuration with the shared impute store; every answer must equal a
+serial replay of the stream with ``execute_quip`` on the card (timed), the
+plan cache must hit and the served impute batches must be fewer than
+serial.  S2 serves the same stream on compiled plans (promoted on the
+first plan-cache hit, result cache off, the join and aggregation
+kernels); S2g, on S2's service, each exp1 wifi query with a GROUP BY
+twice (the segment kernel; exp8's templates at full scale have none).
+S3 serves a mutating cdc stream (``mutating_workload(seed=9)``) with IVM
+and ``explain`` in rounds; every answer must equal a cold run over the
+tables it was admitted on, a cached answer must be patched, no IVM delta
+run may fail (a failure is evicted and recomputed, so only the
+maintainer's fallback reasons show it), and every explain report must
+reconcile with its query's imputations.  In each
+phase the launch counters, set to 0 just before it, must equal the calls
+into each kernel, and device memory must come back within 1 MB once the
+service is closed.
+
 Each configuration runs once through the kernels and once through the plain
 versions, whose answers and imputation counts must agree; slice 2's wifi
 answers must also equal slice 1's.  The last phases check the paper's
@@ -86,6 +106,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import inspect
 import json
@@ -93,6 +114,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 import traceback
 import types
@@ -1586,65 +1608,103 @@ class Launches:
 
 
 @contextlib.contextmanager
-def recording(kops):
+def recording(kops, kd):
     """Keep, for the kernel-time phase, the main path's calls into the
     kernels: every bloom probe's bits, keys and sizes (and a count of probes
     handed keys folded on the host), every join's sizes and the keys of the
     largest join by build keys and by probe keys, the largest mean and mode
     calls' ids and targets (and counts of mean and mode calls handed values
     instead of ids: a gather outside the kernel), and every segment
-    reduction's size with the largest one's values and ids."""
+    reduction's size with the largest one's values and ids.  ``calls``
+    counts, per kernel, the calls that launch it (an empty input launches
+    nothing), by the names of ``Launches.read()``: the served phases hold
+    the launch counters to it, and set ``keep`` to False so that no tensor
+    of theirs outlives their service.
+    Worker threads call in at once, so every update takes one lock."""
     rec = {"bloom": Counter(), "bloom_calls": [], "bloom_folded_calls": 0,
            "join": [], "join_keys": None, "join_probe_keys": None,
            "mean": None, "mean_values_calls": 0, "mode": None,
-           "mode_values_calls": 0, "segment": [], "segment_args": None}
+           "mode_values_calls": 0, "segment": [], "segment_args": None,
+           "calls": Counter(), "keep": True}
+    lock = threading.Lock()
     names = ("_bloom_probe_cuda", "_bloom_probe_keys_cuda",
              "_hash_join_cuda", "_neighbor_mean_cuda", "_neighbor_mode_cuda",
-             "_segment_reduce_cuda")
+             "_segment_reduce_cuda", "_masked_knn_cuda",
+             "_masked_distance_cuda")
     orig = {n: getattr(kops, n) for n in names}
 
     def bloom(bits, folded, **kw):
-        rec["bloom_folded_calls"] += 1
+        with lock:
+            rec["bloom_folded_calls"] += 1
         return orig["_bloom_probe_cuda"](bits, folded, **kw)
 
     def bloom_keys(bits, keys, **kw):
-        rec["bloom"][(keys.shape[0], kw["num_hashes"], kw["log2m"])] += 1
-        # neither is written again: the filter replaces its device bits
-        # after an insert, and each probe uploads its keys anew
-        rec["bloom_calls"].append((bits, keys, kw["num_hashes"],
-                                   kw["log2m"]))
+        with lock:
+            rec["calls"]["bloom_probe"] += int(keys.shape[0] > 0)
+            if rec["keep"]:
+                rec["bloom"][(keys.shape[0], kw["num_hashes"],
+                              kw["log2m"])] += 1
+                # neither is written again: the filter replaces its device
+                # bits after an insert, and each probe uploads its keys anew
+                rec["bloom_calls"].append((bits, keys, kw["num_hashes"],
+                                           kw["log2m"]))
         return orig["_bloom_probe_keys_cuda"](bits, keys, **kw)
 
     def join(b, p):
-        rec["join"].append((b.shape[0], p.shape[0]))
-        for key, axis in (("join_keys", 0), ("join_probe_keys", 1)):
-            big = rec[key]
-            if big is None or (b, p)[axis].shape[0] > len(big[axis]):
-                rec[key] = (b.cpu().numpy(), p.cpu().numpy())
+        with lock:
+            rec["calls"]["hash_join_build"] += 1
+            rec["calls"]["hash_join_probe"] += 1
+            if rec["keep"]:
+                rec["join"].append((b.shape[0], p.shape[0]))
+                for key, axis in (("join_keys", 0), ("join_probe_keys", 1)):
+                    big = rec[key]
+                    if big is None or (b, p)[axis].shape[0] > len(big[axis]):
+                        rec[key] = (b.cpu().numpy(), p.cpu().numpy())
         return orig["_hash_join_cuda"](b, p)
 
     def ids_call(key: str):
         def call(vals, targets=None):
-            if targets is None:
-                rec[f"{key}_values_calls"] += 1
-            elif rec[key] is None or vals.numel() > rec[key][0].numel():
-                rec[key] = (vals.clone(), targets)
+            with lock:
+                rec["calls"][f"neighbor_{key}"] += int(vals.shape[0] > 0)
+                if targets is None:
+                    rec[f"{key}_values_calls"] += 1
+                elif rec["keep"] and (rec[key] is None or vals.numel()
+                                      > rec[key][0].numel()):
+                    rec[key] = (vals.clone(), targets)
             return orig[f"_neighbor_{key}_cuda"](vals, targets)
         return call
 
     def segment(vals, seg, num_segments, op):
-        rec["segment"].append((seg.shape[0], num_segments, op))
-        big = rec["segment_args"]
-        if vals is not None and (big is None
-                                 or seg.shape[0] > big[1].shape[0]):
-            rec["segment_args"] = (vals.clone(), seg.clone(), num_segments)
+        with lock:
+            rec["calls"]["segment_reduce"] += int(num_segments > 0)
+            if rec["keep"]:
+                rec["segment"].append((seg.shape[0], num_segments, op))
+            big = rec["segment_args"]
+            if rec["keep"] and vals is not None and (
+                    big is None or seg.shape[0] > big[1].shape[0]):
+                rec["segment_args"] = (vals.clone(), seg.clone(),
+                                       num_segments)
         return orig["_segment_reduce_cuda"](vals, seg, num_segments, op)
+
+    def knn(q, qm, r, rm, k):
+        if q.shape[0] and r.shape[0] and k:
+            with lock:  # k above the fused limit runs the distance kernel
+                rec["calls"]["masked_knn" if k <= kd.MAX_FUSED_K
+                             else "masked_distance"] += 1
+        return orig["_masked_knn_cuda"](q, qm, r, rm, k)
+
+    def distance(q, qm, r, rm):
+        if q.shape[0] and r.shape[0]:
+            with lock:
+                rec["calls"]["masked_distance"] += 1
+        return orig["_masked_distance_cuda"](q, qm, r, rm)
 
     patched = {"_bloom_probe_cuda": bloom,
                "_bloom_probe_keys_cuda": bloom_keys, "_hash_join_cuda": join,
                "_neighbor_mean_cuda": ids_call("mean"),
                "_neighbor_mode_cuda": ids_call("mode"),
-               "_segment_reduce_cuda": segment}
+               "_segment_reduce_cuda": segment, "_masked_knn_cuda": knn,
+               "_masked_distance_cuda": distance}
     for n, fn in patched.items():
         setattr(kops, n, fn)
     try:
@@ -1953,6 +2013,299 @@ def check_compound(dataset, tables, queries, dev, mods, ext):
                              f"the kernel and plain paths")
 
 
+# --------------------------------------------------------------------------- #
+# the serving stack (slice 9)
+# --------------------------------------------------------------------------- #
+SERVED_QUERIES = 40  # exp8's stream (benchmarks/exp8_serving.py)
+
+
+def check_served_launches(name, launches, rec, calls_before, expect) -> dict:
+    """Every launch counter, set to 0 just before the phase, must equal the
+    calls into its kernel that the phase made; every kernel of ``expect``
+    launched."""
+    counts = launches.read()
+    calls = {k: rec["calls"][k] - calls_before[k] for k in counts}
+    if counts != calls:
+        raise AssertionError(f"{name}: launch counts {counts} differ from "
+                             f"the calls into the kernels {calls}")
+    for k in expect:
+        if counts[k] <= 0:
+            raise AssertionError(f"{name}: kernel {k} was never launched")
+    if rec["bloom_folded_calls"] or rec["mean_values_calls"] \
+            or rec["mode_values_calls"]:
+        raise AssertionError(f"{name}: a probe folded on the host or an "
+                             f"aggregation gathered outside its kernel")
+    print(f"   {name} launches (== calls into the kernels): {counts}",
+          flush=True)
+    return counts
+
+
+def submit_all(stream):
+    """The ``drive`` of :func:`serve` for a stream with no mutation: submit
+    every query, wait for every ticket."""
+    def drive(svc):
+        tickets = [svc.submit(q, tenant=t) for t, q in stream]
+        svc.run_until_idle()
+        return tickets
+    return drive
+
+
+def serve(launches, rec, name, expect, make, drive, check=None):
+    """One served phase: set every launch counter to 0, make the service
+    (``make()``), let ``drive(svc)`` submit the traffic and wait for it (it
+    returns the tickets in order), hold the launches to the calls, run
+    ``check(svc, tickets)``, then close the service and see its device
+    memory go back.  Returns (sorted answers per ticket, summary, records
+    per ticket, launches, wall seconds, peak device bytes above the level
+    before)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    calls = Counter(rec["calls"])
+    t0 = time.perf_counter()
+    svc = make()
+    tickets = drive(svc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = check_served_launches(name, launches, rec, calls, expect)
+    if check is not None:
+        check(svc, tickets)
+    summary = svc.summary()
+    records = {r.ticket: r for r in svc.serving.records}
+    answers = [sorted(svc.answers(t)) for t in tickets]
+    peak = torch.cuda.max_memory_allocated() - base
+    svc.close()
+    del svc
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    if abs(after - base) > 1 << 20:
+        raise AssertionError(f"{name}: {after - base} bytes of device memory "
+                             f"still held after close() (the shared store's "
+                             f"imputers hold reference rows on the card)")
+    print(f"   {name}: device memory after close() {after - base:+d} bytes "
+          f"against before", flush=True)
+    return answers, summary, [records[t] for t in tickets], counts, wall, peak
+
+
+def serial_oracle(executor, imputers, tables, stream, dev, cfg, label):
+    """Serial replay of the whole stream on the card: cold
+    ``execute_quip``, one fresh engine a query.  Returns ({id(query):
+    sorted answers}, imputations, impute batches, wall seconds); a template
+    whose runs disagree fails."""
+    out, imps, batches, per = {}, 0, 0, Counter()
+    t_all = time.perf_counter()
+    for _, q in stream:
+        t0 = time.perf_counter()
+        res = executor.execute_quip(q, tables,
+                                    knn_engine(imputers, tables, dev, cfg),
+                                    device=dev, **quip_kwargs(cfg))
+        torch.cuda.synchronize()
+        rows, c = sorted(res.answer_tuples()), res.counters
+        if out.setdefault(id(q), rows) != rows:
+            raise AssertionError(f"{label}: two serial runs of one template "
+                                 f"answer differently")
+        imps += c.imputations
+        batches += c.impute_batches
+        per[id(q)] += 1
+        if per[id(q)] == 1:
+            print(f"   {label} serial template {len(out) - 1}: {len(rows)} "
+                  f"rows, imputations={c.imputations}, impute_batches="
+                  f"{c.impute_batches}, {time.perf_counter() - t0:.3f}s",
+                  flush=True)
+    wall = time.perf_counter() - t_all
+    print(f"   {label} serial replay of the {len(stream)} queries: "
+          f"{wall:.3f}s, imputations {imps} in {batches} batches",
+          flush=True)
+    return out, imps, batches, wall
+
+
+def print_served(name, summary, wall, n, counts, peak, extra="") -> None:
+    print(f"   {name}: {n} queries in {wall:.3f}s ({n / wall:.3f} QPS), "
+          f"p50 {summary['p50_latency_s']:.3f}s, p95 "
+          f"{summary['p95_latency_s']:.3f}s, plan-cache hits "
+          f"{summary['plan_cache_hits']}, result-cache hits "
+          f"{summary.get('result_cache_hits', 0)}, impute_cross_hits "
+          f"{summary['impute_cross_hits']}, imputations "
+          f"{summary['imputations']} in {summary['impute_batches']} batches"
+          f"{extra}, peak device memory {peak / 2**20:.1f} MiB above "
+          f"before", flush=True)
+
+
+def served_s1(service_mods, mods, wifi, stream, dev, launches, rec):
+    """S1: slice 1's configuration served by four workers with the shared
+    impute store; every answer equals the card's serial replay, the plan
+    cache hits, and the served impute batches are fewer than serial."""
+    executor, imputers = mods[:2]
+    oracle, serial_imps, serial_batches, serial_wall = serial_oracle(
+        executor, imputers, wifi, stream, dev, SLICE1, "S1")
+    answers, summary, _, counts, wall, peak = serve(
+        launches, rec, "S1", ("bloom_probe", "masked_knn"),
+        lambda: service_mods.QuipService(
+            wifi, imputer_factory=lambda: imputers.KnnImputer(
+                k=KNN_K, cost_per_value=KNN_COST, device=dev),
+            workers=4, max_inflight=4, shared_impute=True,
+            strategy="adaptive", device=dev),
+        submit_all(stream))
+    for i, ((_, q), got) in enumerate(zip(stream, answers)):
+        if got != oracle[id(q)]:
+            raise AssertionError(f"S1 ticket {i + 1}: the served answer "
+                                 f"({len(got)} rows) differs from the serial "
+                                 f"oracle's ({len(oracle[id(q)])})")
+    if summary["plan_cache_hits"] <= 0:
+        raise AssertionError("S1: no plan-cache hits on the skewed stream")
+    if summary["impute_batches"] >= serial_batches:
+        raise AssertionError(f"S1: {summary['impute_batches']} impute "
+                             f"batches served, {serial_batches} serial")
+    print_served("S1", summary, wall, len(stream), counts, peak,
+                 f" (serial replay: {serial_imps} in {serial_batches} "
+                 f"batches, {serial_wall:.3f}s)")
+    print(f"   S1: every answer == the serial oracle's", flush=True)
+    return oracle, counts, (wall, summary)
+
+
+def s2_config(imputers, dev) -> dict:
+    """S2's service: compiled plans promoted on the first plan-cache hit,
+    the join and aggregation kernels, the result cache off so that every
+    repeat executes."""
+    return dict(
+        imputer_factory=lambda: imputers.KnnImputer(
+            k=KNN_K, cost_per_value=KNN_COST, agg_impl="cuda", device=dev),
+        exec_impl="compiled", compile_after_hits=1, strategy="eager",
+        use_vf=False, minmax_opt=False, join_impl="cuda", workers=4,
+        result_cache_size=0, device=dev)
+
+
+def served_s2(service_mods, mods, wifi, stream, dev, launches, rec, oracle):
+    """S2: S1's stream on compiled plans; answers equal S1's oracle."""
+    config = s2_config(mods[1], dev)
+    with knobs(QUIPT_SEGMENT_IMPL="cuda"):
+        answers, summary, records, counts, wall, peak = serve(
+            launches, rec, "S2", ("masked_knn", "hash_join_build",
+                                  "hash_join_probe", "neighbor_mode"),
+            lambda: service_mods.QuipService(wifi, **config),
+            submit_all(stream))
+    for i, ((_, q), got) in enumerate(zip(stream, answers)):
+        if got != oracle[id(q)]:
+            raise AssertionError(f"S2 ticket {i + 1}: the served answer "
+                                 f"differs from S1's oracle")
+    if summary["compiled_hits"] <= 0:
+        raise AssertionError("S2: no execution ran a compiled plan")
+    impls = Counter(r.counters.exec_impl for r in records)
+    print_served("S2", summary, wall, len(stream), counts, peak,
+                 f", compiled_hits {summary['compiled_hits']} "
+                 f"({dict(impls)})")
+    print("   S2: every answer == S1's serial oracle", flush=True)
+    return counts, (wall, summary)
+
+
+def served_s2g(service_mods, mods, wifi, dev, launches, rec, grouped):
+    """S2g: S2's service serves each exp1 wifi query with a GROUP BY twice
+    (the second run compiled), through the segment kernel, with the answers
+    of slice 3's end-to-end phase.  exp8's templates at full scale have no
+    GROUP BY, so S2's compiled plans reduce no segments."""
+    config = s2_config(mods[1], dev)
+    pairs = [(0, q) for q, _ in grouped for _ in range(2)]
+    with knobs(QUIPT_SEGMENT_IMPL="cuda"):
+        answers, summary, _, counts, wall, peak = serve(
+            launches, rec, "S2g", ("masked_knn", "hash_join_build",
+                                   "hash_join_probe", "segment_reduce"),
+            lambda: service_mods.QuipService(wifi, **config),
+            submit_all(pairs))
+    if answers != [sorted(rows) for _, rows in grouped for _ in range(2)]:
+        raise AssertionError("S2g: a served answer differs from slice 3's "
+                             "end-to-end answer")
+    if summary["compiled_hits"] != len(grouped):
+        raise AssertionError(f"S2g: {summary['compiled_hits']} compiled "
+                             f"runs, want {len(grouped)}")
+    print_served("S2g", summary, wall, len(pairs), counts, peak,
+                 f", compiled_hits {summary['compiled_hits']}")
+    return counts, (wall, summary)
+
+
+def served_s3(service_mods, mods, cdc, dev, launches, rec):
+    """S3: a mutating cdc stream with IVM and explain on, in rounds (the
+    queries since the last mutation, all answered, then the mutation);
+    every answer equals a cold serial run over the registry's tables at its
+    admission, cached answers are patched, no IVM delta run failed, and
+    every explain report reconciles with its query's imputations."""
+    from repro_torch.data.queries import mutating_workload
+
+    executor, imputers = mods[:2]
+    events = list(mutating_workload("cdc", cdc, n_queries=24,
+                                    mutate_every=4, seed=9))
+    registry = service_mods.TableRegistry({t: r.copy()
+                                           for t, r in cdc.items()})
+    snaps, reasons = [], {}
+
+    def drive(svc):
+        tickets, pending = [], []
+        for ev in events + [("mutate", None)]:
+            if ev[0] == "query":
+                pending.append(ev[1:])
+                continue
+            snap = {t: registry[t].copy() for t in registry}
+            tickets += [svc.submit(q, tenant=t) for t, q in pending]
+            svc.run_until_idle()
+            snaps.extend((q, snap) for _, q in pending)
+            pending.clear()
+            if ev[1] is not None:
+                ev[1].apply(registry)
+        return tickets
+
+    def check(svc, tickets):
+        # a delta run that raised is evicted and its answer recomputed
+        # cold, so the answer stays right: only the maintainer's reasons
+        # show the failure
+        reasons.update(svc._ivm.fallback_reasons)
+        print(f"   S3: IVM fallback reasons {reasons}", flush=True)
+        if reasons.get("error"):
+            raise AssertionError(f"S3: {reasons['error']} IVM delta runs "
+                                 f"failed: {svc._ivm.errors}")
+        records = {r.ticket: r for r in svc.serving.records}
+        for tk in tickets:
+            rep, c = svc.explain(tk), records[tk].counters
+            cells = rep.get("totals", {}).get("imputed_cells", 0)
+            if cells != c.imputations:
+                raise AssertionError(f"S3 ticket {tk}: explain reports "
+                                     f"{cells} imputed cells, the counters "
+                                     f"{c.imputations}")
+
+    answers, summary, _, counts, wall, peak = serve(
+        launches, rec, "S3", ("bloom_probe", "masked_knn", "hash_join_build",
+                              "hash_join_probe", "neighbor_mean"),
+        lambda: service_mods.QuipService(
+            registry, lambda: imputers.KnnImputer(
+                k=KNN_K, cost_per_value=KNN_COST, agg_impl="cuda",
+                device=dev),
+            ivm=True, explain=True, workers=4, join_impl="cuda", device=dev),
+        drive, check)
+    stale = 0
+    for got, (q, snap) in zip(answers, snaps):
+        res = executor.execute_quip(q, snap,
+                                    knn_engine(imputers, snap, dev, SLICE2),
+                                    device=dev, **quip_kwargs(SLICE2))
+        stale += got != sorted(res.answer_tuples())
+    if stale:
+        raise AssertionError(f"S3: {stale} of {len(answers)} answers differ "
+                             f"from a cold run over their admission tables")
+    if summary["results_patched"] <= 0:
+        raise AssertionError("S3: IVM patched no cached answer")
+    n_mut = sum(ev[0] == "mutate" for ev in events)
+    print_served("S3", summary, wall, len(answers), counts, peak,
+                 f", {n_mut} mutations, results_patched "
+                 f"{summary['results_patched']}, ivm_fallbacks "
+                 f"{summary['ivm_fallbacks']} {reasons}, result-cache "
+                 f"invalidations "
+                 f"{summary.get('result_cache_invalidations', 0)}")
+    print(f"   S3: {len(answers)} answers == cold runs over their admission "
+          f"tables (none stale); every explain report reconciles",
+          flush=True)
+    return counts, (wall, summary)
+
+
 def kernel_entry(name, source, replaces, launches, t, err, library_ms):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -1976,7 +2329,8 @@ def main() -> int:
         from repro_torch.core import executor
         from repro_torch.core import extensions as ext
         from repro_torch import imputers
-        from repro_torch.data.queries import workload
+        from repro_torch import service as service_mod
+        from repro_torch.data.queries import serving_workload, workload
         from repro_torch.data.synthetic import cdc_dataset, wifi_dataset
         from repro_torch.imputers import base as imputers_base
         from repro_torch.imputers import knn as knn_mod
@@ -2107,15 +2461,8 @@ def main() -> int:
     with phase("flash_attention times at the slice's call"):
         attn_times = time_attention(dev, fa, kref, build)
         attn_t, attn_f32_t = attn_times["bf16"], attn_times["f32"]
-    with phase(f"slice 4: {LM_ARCH} float32 at full width: kernel path == "
-               f"plain path, decode == prefill"):
-        lm_f32_launches = lm_f32_check(dev, lm, fa)
-    with phase(f"slice 4: {LM_ARCH} bfloat16 as configured: prefill on both "
-               f"paths, profile, serve_batch"):
-        lm_launches = lm_bf16_run(dev, lm, fa)
-    torch.cuda.empty_cache()
 
-    with recording(kops) as rec:
+    with recording(kops, kd) as rec:
         with phase("end to end: wifi at full scale, slice 1"):
             s1_wifi, wifi1 = end_to_end(
                 "wifi", wifi, wifi_q, dev, mods, launches, SLICE1, PLAIN1,
@@ -2151,7 +2498,7 @@ def main() -> int:
                  "neighbor_mean"), "slice 2", off_path=("masked_distance",))
         with phase("end to end: wifi at full scale, slice 3 (compiled "
                    "plans, segment reduce on the card)"):
-            s3_wifi, _ = end_to_end(
+            s3_wifi, wifi3 = end_to_end(
                 "wifi", wifi, wifi_q, dev, mods, launches, SLICE3, PLAIN3,
                 ("masked_knn", "hash_join_build", "hash_join_probe",
                  "neighbor_mode", "segment_reduce"), "slice 3",
@@ -2162,8 +2509,36 @@ def main() -> int:
                 ("masked_knn", "hash_join_build", "hash_join_probe",
                  "neighbor_mean", "segment_reduce"), "slice 3",
                 off_path=("bloom_probe", "masked_distance"))
+        # slice 9: the serving stack, each phase's counters set to 0 just
+        # before its service starts and read when its last ticket is done;
+        # the kernel-time phase keeps timing slices 1-3's recorded calls
+        rec["keep"] = False
+        stream = list(serving_workload("wifi", wifi, n_queries=SERVED_QUERIES,
+                                       n_templates=6, n_tenants=4, skew=1.1,
+                                       seed=5))
+        with phase(f"served S1: wifi at full scale, {len(stream)} queries "
+                   f"of exp8's stream, QuipService(workers=4, shared_impute) "
+                   f"in slice 1's configuration, against serial execute_quip"):
+            oracle, s1_served, s1_numbers = served_s1(
+                service_mod, mods, wifi, stream, dev, launches, rec)
+        with phase("served S2: the same stream on compiled plans (join and "
+                   "aggregation kernels), result cache off"):
+            s2_served, s2_numbers = served_s2(service_mod, mods, wifi, stream,
+                                              dev, launches, rec, oracle)
+        with phase("served S2g: the exp1 wifi queries with a GROUP BY, twice "
+                   "each, on S2's service (segment kernel)"):
+            grouped = [(q, rows) for q, (rows, _, _) in zip(wifi_q, wifi3)
+                       if q.aggregate is not None and q.aggregate.group_by]
+            s2g_served, s2g_numbers = served_s2g(service_mod, mods, wifi, dev,
+                                                 launches, rec, grouped)
+        with phase("served S3: cdc, a mutating stream with IVM and explain, "
+                   "against cold runs over each admission's tables"):
+            s3_served, s3_numbers = served_s3(service_mod, mods, cdc, dev,
+                                              launches, rec)
+        torch.cuda.empty_cache()
     # every path was read with its counters set to 0 just before it
-    paths = (s1_wifi, s1_cdc, s1_cdc_k33, s2_wifi, s2_cdc, s3_wifi, s3_cdc)
+    paths = (s1_wifi, s1_cdc, s1_cdc_k33, s2_wifi, s2_cdc, s3_wifi, s3_cdc,
+             s1_served, s2_served, s2g_served, s3_served)
     main_launches = {k: sum(p[k] for p in paths) for k in s2_wifi}
     for k, v in main_launches.items():
         if v <= 0:
@@ -2185,6 +2560,13 @@ def main() -> int:
             check_compiled_against_interp(ds, small, small_q, dev, mods,
                                           SLICE3)
             check_compound(ds, small, small_q, dev, mods, ext)
+    with phase(f"slice 4: {LM_ARCH} float32 at full width: kernel path == "
+               f"plain path, decode == prefill"):
+        lm_f32_launches = lm_f32_check(dev, lm, fa)
+    with phase(f"slice 4: {LM_ARCH} bfloat16 as configured: prefill on both "
+               f"paths, profile, serve_batch"):
+        lm_launches = lm_bf16_run(dev, lm, fa)
+    torch.cuda.empty_cache()
 
     with phase("kernel times at the main path's shapes"):
         if rec["bloom_folded_calls"]:
@@ -2246,6 +2628,13 @@ def main() -> int:
           f"{s1_cdc_k33}")
     print(f"   slice 2 launches: wifi {s2_wifi}, cdc {s2_cdc}")
     print(f"   slice 3 launches: wifi {s3_wifi}, cdc {s3_cdc}")
+    print(f"   slice 9 launches: S1 {s1_served}, S2 {s2_served}, "
+          f"S2g {s2g_served}, S3 {s3_served}")
+    for name, (wall, summ) in (("S1", s1_numbers), ("S2", s2_numbers),
+                               ("S2g", s2g_numbers), ("S3", s3_numbers)):
+        print(f"   served {name}: {summ['queries']} queries, wall "
+              f"{wall:.3f}s, p50 {summ['p50_latency_s']:.3f}s, p95 "
+              f"{summ['p95_latency_s']:.3f}s")
     print(f"   slice 4 launches: flash_attention (tensor core) {lm_launches} "
           f"per bf16 {LM_ARCH} prefill, flash_attention_f32 (CUDA core) "
           f"{lm_f32_launches} per f32 prefill")

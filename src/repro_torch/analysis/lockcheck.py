@@ -1,7 +1,8 @@
 """Runtime lock-order sanitizer for the engine's locks.
 
-Every lock of the port is created through :func:`make_lock` with a stable
-name ("BloomFilter._lock", "ImputeStore.key", ...).  With
+Every lock of the port is created through :func:`make_lock` /
+:func:`make_rlock` / :func:`make_condition` with a stable name
+("QuipService._lock", "ImputeStore.key", ...).  With
 ``QUIPT_SANITIZE`` unset (or ``off``) the factories return plain
 ``threading`` primitives — zero overhead, byte-identical behaviour.
 Under ``QUIPT_SANITIZE=locks`` they return instrumented wrappers that
@@ -22,8 +23,11 @@ record, into one process-global :class:`LockOrderGraph`:
   *held-while-blocking* events (blocking on this lock while holding at
   least one other — the shape every real deadlock is made of).
 
-The reference package also has RLock and Condition factories for its
-serving stack; they return with the port of that stack.
+The wrappers implement the private ``threading.Condition`` protocol
+(``_release_save`` / ``_acquire_restore`` / ``_is_owned``), so
+``make_condition(sanitized_rlock)`` waits and notifies exactly like a
+plain Condition while the held-set bookkeeping stays accurate across
+``wait()``'s release/reacquire.
 :func:`assert_acyclic` writes the JSON report to
 ``build/lock_sanitizer_report.json`` on failure.
 """
@@ -43,7 +47,9 @@ __all__ = [
     "LockOrderGraph",
     "assert_acyclic",
     "graph",
+    "make_condition",
     "make_lock",
+    "make_rlock",
     "report",
     "reset",
     "resolve_sanitize",
@@ -301,6 +307,88 @@ class _SanLock:
         return f"<SanLock {self._name} {self._lock!r}>"
 
 
+class _SanRLock:
+    """Drop-in ``threading.RLock`` feeding the lock-order graph.
+
+    Reentrant acquires (depth > 1) record no edges — the lock is already
+    in the thread's held set, so only the 0→1 transition orders against
+    other locks.  Implements the private ``threading.Condition`` protocol
+    (``_release_save``/``_acquire_restore``/``_is_owned``) so a Condition
+    built over this wrapper keeps the held set honest across ``wait()``."""
+
+    __slots__ = ("_name", "_graph", "_lock", "_owner", "_depth")
+
+    def __init__(self, name: str, g: LockOrderGraph):
+        self._name = name
+        self._graph = g
+        self._lock = threading.RLock()
+        self._owner: Optional[int] = None
+        self._depth = 0
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        me = threading.get_ident()
+        if self._owner == me:  # reentrant: no edges, just depth
+            self._lock.acquire()
+            self._depth += 1
+            return True
+        contended = not self._lock.acquire(False)
+        if contended:
+            self._graph.note_blocking(self._name)
+            if not blocking:
+                return False
+            if not self._lock.acquire(True, timeout):
+                return False
+        self._owner = me
+        self._depth = 1
+        self._graph.note_acquired(self._name, contended)
+        return True
+
+    def release(self) -> None:
+        if self._owner != threading.get_ident():
+            raise RuntimeError(
+                f"cannot release un-acquired sanitized lock {self._name}"
+            )
+        self._depth -= 1
+        if self._depth == 0:
+            self._owner = None
+            self._graph.note_released(self._name)
+        self._lock.release()
+
+    def __enter__(self) -> "_SanRLock":
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+    # -- threading.Condition protocol -------------------------------------#
+    def _is_owned(self) -> bool:
+        return self._owner == threading.get_ident()
+
+    def _release_save(self):
+        depth = self._depth
+        self._depth = 0
+        self._owner = None
+        self._graph.note_released(self._name)
+        for _ in range(depth):
+            self._lock.release()
+        return depth
+
+    def _acquire_restore(self, state) -> None:
+        contended = not self._lock.acquire(False)
+        if contended:
+            self._graph.note_blocking(self._name)
+            self._lock.acquire()
+        for _ in range(state - 1):
+            self._lock.acquire()
+        self._owner = threading.get_ident()
+        self._depth = state
+        self._graph.note_acquired(self._name, contended)
+
+    def __repr__(self):
+        return f"<SanRLock {self._name} depth={self._depth}>"
+
+
 # --------------------------------------------------------------------------- #
 # factories — the only API lock sites use
 # --------------------------------------------------------------------------- #
@@ -312,3 +400,17 @@ def make_lock(name: str):
     if resolve_sanitize() == "locks":
         return _SanLock(name, _GRAPH)
     return threading.Lock()
+
+
+def make_rlock(name: str):
+    """A ``threading.RLock`` (or its sanitized wrapper) named ``name``."""
+    if resolve_sanitize() == "locks":
+        return _SanRLock(name, _GRAPH)
+    return threading.RLock()
+
+
+def make_condition(lock):
+    """A ``threading.Condition`` over ``lock`` — works identically for
+    plain and sanitized locks (the wrappers implement the Condition
+    protocol, so ``wait()`` releases/reacquires through the graph)."""
+    return threading.Condition(lock)

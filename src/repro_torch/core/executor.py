@@ -164,9 +164,9 @@ class QuipExecutor:
         # there); bare engines get the shared no-op tracer / no provenance
         self.tracer = getattr(engine, "tracer", NULL_TRACER)
         self.provenance = getattr(engine, "provenance", None)
-        # the imputation service always batches: impute requests coalesce
-        # where the morsel pipeline is provably order-insensitive (see
-        # _join / _rho)
+        # batched imputation service: coalesce impute requests where the
+        # morsel pipeline is provably order-insensitive (see _join / _rho)
+        self.batching = bool(getattr(engine, "batching", False))
         self._scan_whole = False  # build-side materialization flag
         # intra-query morsel parallelism: the serving layer's worker pool
         # injects a runner ``(fn, items) -> [fn(x) for x in items]`` that
@@ -260,7 +260,9 @@ class QuipExecutor:
         # pushdown needs ρ's verified output to tighten its bound — in both
         # cases deferral would change which values get imputed, so ρ stays
         # morsel-streamed there.
-        self._defer_rho = not self.use_vf and self._minmax is None
+        self._defer_rho = (
+            self.batching and not self.use_vf and self._minmax is None
+        )
 
     # ------------------------------------------------------------------ #
     # MIN/MAX pushdown placement (paper §9.3)
@@ -477,7 +479,7 @@ class QuipExecutor:
     def _scan(self, node: ScanNode) -> Iterator[MaskedRelation]:
         rel = self.tables[node.table]
         n = rel.num_rows
-        # during build-side materialization, operands scan as a single
+        # under build-side batching, materialized operands scan as a single
         # morsel so σ̂ below runs once and its impute requests flush as one
         # deduplicated batch instead of one per morsel
         step = max(n, 1) if self._scan_whole else self.morsel_rows
@@ -537,7 +539,8 @@ class QuipExecutor:
         l_tabs, r_tabs = self.join_side_tables[node.node_id]
 
         # ---- build (right) side: materialize ---------------------------- #
-        # The build operand is blocked anyway, so its Scan/Select chain runs whole-relation-at-a-time: σ̂ decision groups
+        # The build operand is blocked anyway, so with batching on, its
+        # Scan/Select chain runs whole-relation-at-a-time: σ̂ decision groups
         # span the full operand and each attribute imputes in one flush.
         # Exact by construction — during build materialization no bloom can
         # complete (completion only fires for the attr being imputed, whose
@@ -551,7 +554,7 @@ class QuipExecutor:
         with (tr.span("op:join_build", node=node.node_id, attr=r_attr)
               if tr.enabled else NULL_SPAN) as bsp:
             prev_whole = self._scan_whole
-            if not any(
+            if self.batching and not any(
                 isinstance(sub, JoinNode) for sub in walk(node.children[1])
             ):
                 self._scan_whole = True

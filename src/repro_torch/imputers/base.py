@@ -24,7 +24,7 @@ decision-function statistics and the reported runtimes.
 
 The dense caches and fitted models live in an :class:`ImputeStore`.  Each
 service creates a private store by default (per-query isolation — seed
-semantics); a serving layer (``repro.service`` in the reference) injects one shared store
+semantics); the serving layer (``repro_torch.service``) injects one shared store
 into many per-query services so values imputed by query A are visible to
 query B (see ``docs/serving.md`` for the consistency argument).
 """
@@ -38,6 +38,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.analysis.lockcheck import make_lock
+from repro_torch.core.env import env_flag
 from repro_torch.core.relation import MaskedRelation
 from repro_torch.core.stats import ExecutionCounters, RuntimeStats
 from repro_torch.obs.trace import NULL_SPAN, NULL_TRACER
@@ -65,6 +66,14 @@ class Imputer:
         self, table: MaskedRelation, attr: str, tids: np.ndarray
     ) -> np.ndarray:
         raise NotImplementedError
+
+
+def _resolve_batching(batching: Optional[bool]) -> bool:
+    """Explicit argument > ``QUIPT_IMPUTE_BATCH`` env (truthy/falsy via
+    :func:`env_flag`) > on."""
+    if batching is not None:
+        return bool(batching)
+    return env_flag("QUIPT_IMPUTE_BATCH", True)
 
 
 class _KeyLock:
@@ -110,7 +119,7 @@ class ImputeStore:
     recording which service (``owner_id``) filled each cell, the basis of
     the serving layer's cross-query-hit telemetry.  By default every
     :class:`ImputationService` creates a private store (per-query isolation,
-    seed semantics); the reference's ``service.impute_store.SharedImputeStore`` binds
+    seed semantics); ``repro_torch.service.impute_store.SharedImputeStore`` binds
     one store to many per-query services.
 
     Flush discipline (thread-safe since the worker pool): store writes
@@ -319,6 +328,7 @@ class ImputationService:
         per_attr: Optional[Dict[str, Imputer]] = None,
         stats: Optional[RuntimeStats] = None,
         counters: Optional[ExecutionCounters] = None,
+        batching: Optional[bool] = None,
         store: Optional[ImputeStore] = None,
         owner_id: int = 0,
         tracer=None,
@@ -333,6 +343,7 @@ class ImputationService:
         self._per_attr = dict(per_attr or {})
         self.stats = stats or RuntimeStats()
         self.counters = counters or ExecutionCounters()  # guarded-by: _tel_lock
+        self.batching = _resolve_batching(batching)
         # observability (repro_torch.obs): the span tracer is never None (the
         # shared NULL_TRACER is a zero-allocation no-op); the provenance
         # recorder is None unless the serving layer asked for explain

@@ -11,9 +11,11 @@ stream; a CPU tensor takes the plain torch version (``ref.bloom_probe_ref``,
 
 from __future__ import annotations
 
+
 import torch
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.build import count as _count
 from repro_torch.kernels.hashing import MAX_HASHES
 
 __all__ = ["bloom_probe", "bloom_probe_keys", "keys_launches", "launches"]
@@ -68,7 +70,6 @@ def bloom_probe(bits: torch.Tensor, folded: torch.Tensor, *,
     """bits: ``(2**log2m // 32,)`` int32 (uint32 words); folded: ``(n,)``
     int32 (uint32 host-folded keys) → ``(n,)`` bool, True iff every one of
     the ``num_hashes`` multiply-shift bits is set."""
-    global launches
     _check(bits, folded, "folded", torch.int32, num_hashes, log2m)
     if folded.device.type == "cpu":
         return _ref.bloom_probe_ref(bits, folded, num_hashes, log2m)
@@ -76,7 +77,7 @@ def bloom_probe(bits: torch.Tensor, folded: torch.Tensor, *,
     if folded.shape[0] == 0:
         return out
     _launch("quipt_bloom_probe", bits, folded, out, num_hashes, log2m)
-    launches += 1
+    _count(globals(), "launches")
     return out
 
 
@@ -85,7 +86,6 @@ def bloom_probe_keys(bits: torch.Tensor, keys: torch.Tensor, *,
     """``bloom_probe`` of ``(n,)`` int64 keys, each folded to uint32 in the
     kernel (``hashing.fold64``'s bits).  ``keys`` may be a view that does
     not start on a 16-byte boundary (``keys[1:]``)."""
-    global keys_launches
     _check(bits, keys, "keys", torch.int64, num_hashes, log2m)
     if keys.device.type == "cpu":
         return _ref.bloom_probe_keys_ref(bits, keys, num_hashes, log2m)
@@ -93,5 +93,5 @@ def bloom_probe_keys(bits: torch.Tensor, keys: torch.Tensor, *,
     if keys.shape[0] == 0:
         return out
     _launch("quipt_bloom_probe_keys", bits, keys, out, num_hashes, log2m)
-    keys_launches += 1
+    _count(globals(), "keys_launches")
     return out

@@ -23,7 +23,7 @@ from pathlib import Path
 from typing import List, Optional
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build_log", "check",
-           "library"]
+           "count", "library"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -184,3 +184,14 @@ def check(rc: int, name: str) -> None:
     """Raise if a launch returned a non-zero ``cudaGetLastError``."""
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+
+
+_count_lock = threading.Lock()
+
+
+def count(counters: dict, name: str) -> None:
+    """Add one to the launch counter ``counters[name]`` (a wrapper's module
+    ``globals()`` or a dict of routes) under one lock: the service's worker
+    threads launch at once, and a bare ``+= 1`` is not atomic."""
+    with _count_lock:
+        counters[name] += 1

@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.build import count as _count
 
 __all__ = ["MAX_HEAD_DIM", "ROUTES", "TENSOR_CORE_HEAD_DIMS",
            "flash_attention", "launches", "route", "route_launches"]
@@ -91,7 +92,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q's dtype.  Query head ``h`` reads KV head ``h // (H // KV)``; a key is
     kept iff ``kpos <= qpos`` (causal) and ``kpos > qpos - window``
     (windowed); ``scale`` defaults to ``1/sqrt(D)``."""
-    global launches
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return _ref.attention_ref(q, k, v, causal=causal, window=window,
@@ -122,6 +122,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                            int(q.dtype == torch.bfloat16),
                                            *flags)
     build.check(rc, f"flash_attention ({which})")
-    launches += 1
-    route_launches[which] += 1
+    _count(globals(), "launches")
+    _count(route_launches, which)
     return out

@@ -29,6 +29,7 @@ from typing import NamedTuple, Tuple, Union
 import torch
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.build import count as _count
 
 __all__ = ["JoinTable", "OWNER_SLOTS", "build_launches", "hash_join",
            "hash_join_build", "hash_join_probe", "probe_launches",
@@ -89,7 +90,6 @@ def hash_join_build(build_keys: torch.Tensor
                     ) -> Union[JoinTable, Tuple[torch.Tensor, torch.Tensor]]:
     """Build the table of ``build_keys`` ``(n,)`` int64.  On the CPU the
     plain version's ``(sorted_keys, order)`` stands in for the table."""
-    global build_launches
     _check_keys("build_keys", build_keys)
     if build_keys.device.type == "cpu":
         return _ref.hash_join_build_ref(build_keys)
@@ -127,7 +127,7 @@ def hash_join_build(build_keys: torch.Tensor
                                   row_slot.data_ptr(), slot_start.data_ptr(),
                                   grouped.data_ptr(), cap, stream)
         build.check(rc, "hash_join_build (place)")
-    build_launches += 1
+    _count(globals(), "build_launches")
     return JoinTable(build_keys, log2cap, slot_row, slot_count, slot_start,
                      grouped)
 
@@ -154,7 +154,6 @@ def hash_join_probe(table, probe_keys: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every ``(probe_idx, build_idx)`` pair of ``probe_keys`` ``(m,)``
     int64 against a built table, as int64 tensors on the keys' device."""
-    global probe_launches
     _check_keys("probe_keys", probe_keys)
     if not isinstance(table, JoinTable):
         if probe_keys.device.type != "cpu":
@@ -196,7 +195,7 @@ def hash_join_probe(table, probe_keys: torch.Tensor
         rc = emit(*args, total, out_probe.data_ptr(), out_build.data_ptr(),
                   stream.cuda_stream)
         build.check(rc, "hash_join_probe (emit)")
-    probe_launches += 1
+    _count(globals(), "probe_launches")
     return out_probe, out_build
 
 

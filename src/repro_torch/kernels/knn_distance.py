@@ -28,6 +28,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.build import count as _count
 
 __all__ = ["MAX_FUSED_K", "ROUTES", "knn_launches", "knn_splits", "launches",
            "masked_distance", "masked_knn", "route", "route_launches"]
@@ -80,7 +81,6 @@ def masked_distance(q: torch.Tensor, qm: torch.Tensor, r: torch.Tensor,
                     rm: torch.Tensor) -> torch.Tensor:
     """``(nq, d)`` x ``(nr, d)`` float32 → ``(nq, nr)`` float32 scaled
     partial distances, +inf where no feature is co-observed."""
-    global launches
     _check(q, qm, r, rm)
     if q.device.type == "cpu":
         return _ref.masked_distance_ref(q, qm, r, rm)
@@ -99,7 +99,7 @@ def masked_distance(q: torch.Tensor, qm: torch.Tensor, r: torch.Tensor,
                                        r.data_ptr(), rm.data_ptr(),
                                        out.data_ptr(), nq, nr, d, stream)
     build.check(rc, "masked_distance")
-    launches += 1
+    _count(globals(), "launches")
     return out
 
 
@@ -127,7 +127,6 @@ def masked_knn(q: torch.Tensor, qm: torch.Tensor, r: torch.Tensor,
     ascending order, ties to the lowest reference row: ``(dists (nq, k)
     float32, idx (nq, k) int64)``, equal to
     ``ref.smallest_k(ref.masked_distance_ref(q, qm, r, rm), k)``."""
-    global knn_launches
     _check(q, qm, r, rm)
     nq, d = q.shape
     nr = r.shape[0]
@@ -138,7 +137,7 @@ def masked_knn(q: torch.Tensor, qm: torch.Tensor, r: torch.Tensor,
     which = route(k)
     if which == "unfused":
         out = _ref.smallest_k(masked_distance(q, qm, r, rm), k)
-        route_launches[which] += 1
+        _count(route_launches, which)
         return out
     from repro_torch.kernels import build
 
@@ -158,6 +157,6 @@ def masked_knn(q: torch.Tensor, qm: torch.Tensor, r: torch.Tensor,
                                   part.data_ptr(), dists.data_ptr(),
                                   idx.data_ptr(), stream)
     build.check(rc, "masked_knn")
-    knn_launches += 1
-    route_launches[which] += 1
+    _count(globals(), "knn_launches")
+    _count(route_launches, which)
     return dists, idx

@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.build import count as _count
 
 __all__ = ["mean_launches", "mode_launches", "neighbor_mean",
            "neighbor_mode"]
@@ -69,7 +70,6 @@ def neighbor_mean(vals: torch.Tensor,
     ``targets`` ``(n_ref,)`` float32, ``vals`` holds the neighbours' int64
     ids into it, each in ``[0, n_ref)``, and the kernel gathers the
     values."""
-    global mean_launches
     if targets is None:
         _check("neighbor_mean", vals, torch.float32)
     else:
@@ -84,7 +84,7 @@ def neighbor_mean(vals: torch.Tensor,
     _launch("quipt_neighbor_mean", vals.device, vals.data_ptr(),
             None if targets is None else targets.data_ptr(), vals.shape[0],
             vals.shape[1], out.data_ptr())
-    mean_launches += 1
+    _count(globals(), "mean_launches")
     return out
 
 
@@ -94,7 +94,6 @@ def neighbor_mode(vals: torch.Tensor,
     to the smallest value.  With ``targets`` ``(n_ref,)`` int64, ``vals``
     holds the neighbours' ids into it, each in ``[0, n_ref)``, and the
     kernel gathers the values."""
-    global mode_launches
     _check("neighbor_mode", vals, torch.int64)
     if vals.shape[1] == 0:
         raise ValueError("neighbor_mode needs at least one column")
@@ -109,5 +108,5 @@ def neighbor_mode(vals: torch.Tensor,
     _launch("quipt_neighbor_mode", vals.device, vals.data_ptr(),
             None if targets is None else targets.data_ptr(), vals.shape[0],
             vals.shape[1], out.data_ptr())
-    mode_launches += 1
+    _count(globals(), "mode_launches")
     return out

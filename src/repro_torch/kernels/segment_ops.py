@@ -147,7 +147,6 @@ def segment_reduce(vals: Optional[torch.Tensor], seg: torch.Tensor,
     ``(num_segments,)`` per-segment ``count`` (int64; ``vals`` is ignored,
     pass None), ``sum``, ``min`` or ``max`` in the values' dtype.  Rows with
     a negative id are dropped; empty segments hold the identity."""
-    global launches
     _check(vals, seg, num_segments, op)
     if seg.device.type == "cpu":
         return _ref.segment_reduce_ref(vals, seg, num_segments, op)
@@ -163,10 +162,10 @@ def segment_reduce(vals: Optional[torch.Tensor], seg: torch.Tensor,
             build.check(lib.quipt_segment_count(
                 seg.data_ptr(), seg.shape[0], num_segments, 0, None,
                 counts.data_ptr(), None, stream), "segment_reduce (count)")
-            launches += 1
+            build.count(globals(), "launches")
             return counts
         counts, starts, grouped = group_rows(lib, seg, num_segments,
                                              stream)
         out = _reduce(lib, vals, op, counts, starts, grouped, stream)
-    launches += 1
+    build.count(globals(), "launches")
     return out

@@ -821,3 +821,200 @@ def test_flash_attention_dispatch_on_card(cuda_device, monkeypatch):
         fa.flash_attention(q.half(), k.half(), k.half())
     with pytest.raises(ValueError):
         fa.flash_attention(q, k[:, :, :1].expand(1, 64, 2, 16), k)
+
+
+# --------------------------------------------------------------------------- #
+# the serving stack on the card (slice 9)
+# --------------------------------------------------------------------------- #
+def _served_wifi(device):
+    from repro_torch.data.queries import serving_workload
+    from repro_torch.data.synthetic import wifi_dataset
+
+    tables, _ = wifi_dataset(np.random.default_rng(3), n_users=150,
+                             n_wifi=2000, n_occ=1000)
+    stream = list(serving_workload("wifi", tables, n_queries=12, seed=5))
+    return tables, stream
+
+
+def test_quip_service_on_card_equals_serial(cuda_device):
+    """Four workers serve a skewed stream on the card through the kernels;
+    every answer equals a cold serial ``execute_quip`` on the card."""
+    from repro_torch.core.executor import execute_quip
+    from repro_torch.imputers import ImputationEngine, KnnImputer
+    from repro_torch.service import QuipService
+
+    tables, stream = _served_wifi(cuda_device)
+    bp.keys_launches = kd.knn_launches = 0
+    svc = QuipService(tables, lambda: KnnImputer(k=5, device=cuda_device),
+                      workers=4, max_inflight=4, shared_impute=True,
+                      device=cuda_device)
+    tickets = [svc.submit(q, tenant=t) for t, q in stream]
+    svc.run_until_idle()
+    assert svc.summary()["failed"] == 0
+    assert bp.keys_launches > 0 and kd.knn_launches > 0
+    oracle = {}
+    for ticket, (_, q) in zip(tickets, stream):
+        if id(q) not in oracle:
+            eng = ImputationEngine(
+                {t: r.copy() for t, r in tables.items()},
+                default=lambda: KnnImputer(k=5, device=cuda_device))
+            oracle[id(q)] = sorted(execute_quip(
+                q, tables, eng, device=cuda_device).answer_tuples())
+        assert sorted(svc.answers(ticket)) == oracle[id(q)]
+    svc.close()
+
+
+def _serve_mutating(device):
+    """Four workers serve a mutating cdc stream with IVM on, in rounds (the
+    queries since the last mutation, all answered, then the mutation),
+    with slice 2's kernels.  Returns (the service, [(sorted answers, query,
+    the tables at its admission)])."""
+    from repro_torch.data.queries import mutating_workload
+    from repro_torch.data.synthetic import cdc_dataset
+    from repro_torch.imputers import KnnImputer
+    from repro_torch.service import QuipService, TableRegistry
+
+    tables, _ = cdc_dataset(n_demo=400, n_labs=400, n_exams=400)
+    events = list(mutating_workload("cdc", tables, n_queries=24,
+                                    mutate_every=4, seed=9))
+    registry = TableRegistry({t: r.copy() for t, r in tables.items()})
+    svc = QuipService(registry, lambda: KnnImputer(k=5, agg_impl="cuda",
+                                                   device=device),
+                      ivm=True, workers=4, join_impl="cuda", device=device)
+    served, pending = [], []
+    for ev in events + [("mutate", None)]:
+        if ev[0] == "query":
+            pending.append(ev[2])
+            continue
+        snap = {t: registry[t].copy() for t in registry}
+        tickets = [svc.submit(q) for q in pending]
+        svc.run_until_idle()
+        served += [(sorted(svc.answers(tk)), q, snap)
+                   for tk, q in zip(tickets, pending)]
+        pending = []
+        if ev[1] is not None:
+            ev[1].apply(registry)
+    return svc, served
+
+
+def test_quip_service_ivm_on_card_equals_cold(cuda_device):
+    """IVM's delta runs launch the kernels at shapes no other path gives
+    them.  A delta run that raises is evicted and recomputed cold, so its
+    answer would still be right: the maintainer's fallback reasons must
+    hold no ``error``, an answer must have been patched, and every answer
+    equals a cold ``execute_quip`` on the card over its admission tables."""
+    from repro_torch.core.executor import execute_quip
+    from repro_torch.imputers import ImputationEngine, KnnImputer
+
+    svc, served = _serve_mutating(cuda_device)
+    reasons = dict(svc._ivm.fallback_reasons)
+    assert "error" not in reasons, svc._ivm.errors
+    assert svc.summary()["results_patched"] > 0, reasons
+    svc.close()
+    for got, q, snap in served:
+        eng = ImputationEngine(
+            {t: r.copy() for t, r in snap.items()},
+            default=lambda: KnnImputer(k=5, agg_impl="cuda",
+                                       device=cuda_device))
+        assert got == sorted(execute_quip(q, snap, eng, join_impl="cuda",
+                                          device=cuda_device).answer_tuples())
+
+
+def test_launch_counters_exact_under_threads(cuda_device):
+    """More threads than cores launch every QUIP kernel at once, with a
+    short switch interval: each counter ends at exactly the number of
+    launches (a bare ``+= 1`` on a module global would lose some)."""
+    import os
+    import sys
+    import threading
+
+    from repro_torch.core.bloom import BloomFilter
+
+    rng = np.random.default_rng(9)
+    dev = cuda_device
+    bloom = BloomFilter("x", device=dev)
+    bloom.insert(rng.integers(0, 8000, 4000))
+    bits = bloom._device_bits()
+    keys = torch.from_numpy(rng.integers(0, 8000, 5000)).to(dev)
+    q = torch.rand(64, 4, device=dev)
+    r = torch.rand(500, 4, device=dev)
+    qm = torch.ones_like(q)
+    rm = torch.ones_like(r)
+    ids = torch.from_numpy(rng.integers(0, 500, (64, 5))).to(dev)
+    ftargets = torch.rand(500, device=dev)
+    itargets = torch.from_numpy(rng.integers(0, 7, 500)).to(dev)
+    bkeys = torch.from_numpy(rng.integers(0, 300, 2000)).to(dev)
+    seg = torch.from_numpy(rng.integers(0, 40, 3000)).to(dev)
+    vals = torch.rand(3000, device=dev, dtype=torch.float64)
+    n_threads, rounds = 2 * (os.cpu_count() or 4), 25
+
+    def launch_all():
+        bp.bloom_probe_keys(bits, keys, num_hashes=bloom.num_hashes,
+                            log2m=bloom.log2m)
+        kd.masked_knn(q, qm, r, rm, 5)
+        kd.masked_distance(q, qm, r, rm)
+        na.neighbor_mean(ids, ftargets)
+        na.neighbor_mode(ids, itargets)
+        table = hj.hash_join_build(bkeys)
+        hj.hash_join_probe(table, bkeys[:700])
+        so.segment_reduce(vals, seg, 40, "sum")
+
+    launch_all()  # builds the library before the race
+    torch.cuda.synchronize()
+    bp.keys_launches = kd.knn_launches = kd.launches = 0
+    na.mean_launches = na.mode_launches = so.launches = 0
+    hj.build_launches = hj.probe_launches = 0
+    errors = []
+
+    def work():
+        try:
+            for _ in range(rounds):
+                launch_all()
+        except Exception as exc:  # surfaced below
+            errors.append(exc)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    torch.cuda.synchronize()
+    assert not errors and not any(t.is_alive() for t in threads)
+    want = n_threads * rounds
+    assert (bp.keys_launches, kd.knn_launches, kd.launches, na.mean_launches,
+            na.mode_launches, hj.build_launches, hj.probe_launches,
+            so.launches) == (want,) * 8
+
+
+def test_service_device_memory_returns_after_close(cuda_device):
+    """The shared store's fitted imputers hold reference rows on the card;
+    once the service is closed and dropped, device memory is back within
+    1 MB of its level before the service."""
+    import gc
+
+    from repro_torch.imputers import KnnImputer
+    from repro_torch.service import QuipService
+
+    tables, stream = _served_wifi(cuda_device)
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda_device)
+    svc = QuipService(tables, lambda: KnnImputer(k=5, device=cuda_device),
+                      workers=4, shared_impute=True, device=cuda_device)
+    for t, q in stream:
+        svc.submit(q, tenant=t)
+    svc.run_until_idle()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(cuda_device)
+    svc.close()
+    del svc
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated(cuda_device)
+    assert held >= after
+    assert abs(after - before) <= 1 << 20, (before, held, after)

@@ -21,12 +21,16 @@ from repro.imputers.knn import KnnImputer as JaxKnn
 from repro_torch.core import executor
 from repro_torch.core.compiled import resolve_exec_impl
 from repro_torch.core.bloom import BloomFilter
-from repro_torch.core.env import ENV_REGISTRY
+from repro_torch.core.env import ENV_REGISTRY, env_int
 from repro_torch.core.triggers import multi_match, resolve_join_impl
 from repro_torch.data.queries import workload
 from repro_torch.data.synthetic import cdc_dataset, wifi_dataset
 from repro_torch.imputers import ImputationEngine, KnnImputer, MeanImputer
+from repro_torch.imputers.base import _resolve_batching
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import resolve_explain, resolve_tracer
+from repro_torch.service import QuipService, resolve_shared_impute
+from repro_torch.service.ivm import resolve_ivm
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -204,12 +208,15 @@ def test_default_device_raises_without_cuda(monkeypatch):
         lambda: kops.resolve_device(),
         lambda: executor.execute_quip(q, tables, eng),
         lambda: executor.execute_offline(q, tables, eng),
+        lambda: QuipService(tables, MeanImputer),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     # an explicit CPU device runs
     res = executor.execute_quip(q, tables, eng, device="cpu")
     assert res.counters.join_impl == "numpy"
+    svc = QuipService(tables, MeanImputer, device="cpu")
+    assert svc.answers(svc.submit(q)) == res.answer_tuples()
     with pytest.raises(ValueError):
         kops.resolve_device("meta")
 
@@ -225,6 +232,13 @@ _RESOLVERS = {
     "QUIPT_JOIN_IMPL": lambda: resolve_join_impl(),
     "QUIPT_SEGMENT_IMPL": lambda: kops.resolve_segment_impl(),
     "QUIPT_EXEC_IMPL": lambda: resolve_exec_impl(),
+    "QUIPT_SHARED_IMPUTE": lambda: resolve_shared_impute(None),
+    "QUIPT_IMPUTE_BATCH": lambda: _resolve_batching(None),
+    "QUIPT_TRACE": lambda: resolve_tracer(None),
+    "QUIPT_TRACE_CLOCK": lambda: resolve_tracer(True),
+    "QUIPT_EXPLAIN": lambda: resolve_explain(None),
+    "QUIPT_IVM": lambda: resolve_ivm(None),
+    "QUIPT_FUZZ_SEED": lambda: env_int("QUIPT_FUZZ_SEED"),
 }
 
 
@@ -258,6 +272,12 @@ def test_port_reads_only_registered_quipt_knobs():
         text = path.read_text()
         read |= set(re.findall(r'"(QUIPT_[A-Z_]+)"', text))
         assert not re.search(r'"QUIP_[A-Z_]+"', text), path
+    # a knob whose registered owner is a test (the fuzzer's extra seed)
+    for knob in ENV_REGISTRY.values():
+        if knob.owner.startswith("tests/"):
+            text = (ROOT / knob.owner).read_text()
+            assert f'env_int("{knob.name}")' in text, knob.name
+            read.add(knob.name)
     assert read == set(ENV_REGISTRY)
 
 
