@@ -86,6 +86,19 @@ phase the launch counters, set to 0 just before it, must equal the calls
 into each kernel, and device memory must come back within 1 MB once the
 service is closed.
 
+Slice 10 is the LM training path (``repro_torch.launch.train``), after
+slice 4's phases.  The trainer's QUIP stream (``quip_batch_stream``: four
+random wifi queries cleaned with the mean imputer, their bloom probes on
+the card) must give the same 64 batches through the kernel and through
+its plain version; ``train_loop`` then trains qwen2.5-3b at full width
+and depth (bf16, AdamW, ``remat="full"``) for 30 steps of 8 x 128 tokens
+on that stream: every loss finite, the last five below the first, with
+its seconds per step, tokens/s, peak memory and one profiled step.  One
+float32 step at qwen2.5-3b's widths (2 layers) must equal the CPU's, and
+a failure injected at step 27 of the reduced config must replay from the
+checkpoint at step 25 to the uninterrupted run's losses.  Both runs that
+drive the stream are read with the launch counters set to 0 just before.
+
 Each configuration runs once through the kernels and once through the plain
 versions, whose answers and imputation counts must agree; slice 2's wifi
 answers must also equal slice 1's.  The last phases check the paper's
@@ -2306,6 +2319,193 @@ def served_s3(service_mods, mods, cdc, dev, launches, rec):
     return counts, (wall, summary)
 
 
+# --------------------------------------------------------------------------- #
+# slice 10: the LM training path
+# --------------------------------------------------------------------------- #
+TRAIN = dict(steps=30, batch=8, seq=128)  # the reference trainer's defaults
+TRAIN_BATCHES = 64  # batch_fn's cycle: the batches a run of train_loop uses
+TRAIN_FAIL_AT = 27  # replayed from train_loop's checkpoint at step 25
+TRAIN_CKPT_EVERY = 25
+
+
+def batches_digest(batches) -> str:
+    h = hashlib.sha256()
+    for b in batches:
+        for k in sorted(b):
+            h.update(k.encode())
+            h.update(np.ascontiguousarray(b[k]).tobytes())
+    return h.hexdigest()[:16]
+
+
+def train_pipeline(tr, launches, dev, clock_mods) -> dict:
+    """The trainer's QUIP stream (``quip_batch_stream`` at qwen2.5-3b's
+    vocabulary, batch 8 x 128): once through the bloom-probe kernel, with
+    the launch counters set to 0 just before and read just after, and once
+    through its plain version (``QUIPT_BLOOM_IMPL=ref``), which must
+    launch nothing; the first 64 batches of both must be equal.  The
+    engine's clock is stopped so both adaptive runs decide alike."""
+    cfg = tr.get_arch(LM_ARCH)
+
+    def run():
+        t0 = time.perf_counter()
+        stream = tr.quip_batch_stream(cfg, TRAIN["batch"], TRAIN["seq"],
+                                      device=dev)
+        out = [next(stream) for _ in range(TRAIN_BATCHES)]
+        return out, time.perf_counter() - t0
+
+    with frozen_clock(clock_mods):
+        launches.reset()
+        kern, kern_s = run()
+        counts = launches.read()
+        with knobs(QUIPT_BLOOM_IMPL="ref"):
+            plain, plain_s = run()
+    if launches.read() != counts:
+        raise AssertionError("the plain pipeline launched a kernel")
+    if counts["bloom_probe"] <= 0:
+        raise AssertionError("the pipeline launched no bloom probe")
+    dk, dp = batches_digest(kern), batches_digest(plain)
+    print(f"   pipeline: {TRAIN_BATCHES} batches of {kern[0]['tokens'].shape}"
+          f", digest {dk} (kernel) / {dp} (plain); bloom launches "
+          f"{counts['bloom_probe']}; {kern_s:.3f}s with the kernel, "
+          f"{plain_s:.3f}s plain", flush=True)
+    if dk != dp:
+        raise AssertionError("the pipeline's kernel and plain batches differ")
+    return counts
+
+
+def train_memory(tr, cfg) -> dict:
+    """The full-width run's memory reckoning, from the abstract state."""
+    state = tr.abstract_train_state(cfg)
+    size = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    params = list(state["params"].parameters())
+    out = {"params": size(params), "grads": size(params),
+           "adamw m+v": size(state["opt"]["m"].values())
+           + size(state["opt"]["v"].values()),
+           "largest leaf in f32": max(p.numel() for p in params) * 4,
+           "f32 logits": TRAIN["batch"] * TRAIN["seq"] * cfg.vocab * 4}
+    out["sum"] = sum(out.values())
+    return out
+
+
+def train_full_width(tr, launches, dev) -> dict:
+    """``train_loop`` on qwen2.5-3b at full width and depth (bf16, AdamW,
+    ``remat="full"``), 30 steps on the QUIP stream, with the launch
+    counters set to 0 just before and read just after.  Gates: every loss
+    finite, the mean of the last 5 below the first, the step counter at
+    30, bloom launches > 0.  Prints seconds per step, tokens/s, the peak
+    memory beside its reckoning, then profiles one more step."""
+    cfg = tr.get_arch(LM_ARCH)
+    mem = train_memory(tr, cfg)
+    print(f"   {LM_ARCH}: {cfg.n_layers} layers, {cfg.num_params():,} "
+          f"parameters, {cfg.dtype}; reckoning "
+          + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in mem.items()),
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    launches.reset()
+    out = tr.train_loop(cfg, device=dev, log_every=10, **TRAIN)
+    counts = launches.read()
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    if len(losses) != TRAIN["steps"] or not np.isfinite(losses).all():
+        raise AssertionError(f"full-width losses {losses}")
+    if not np.mean(losses[-5:]) < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if int(out["state"]["step"]) != TRAIN["steps"]:
+        raise AssertionError("the step counter is not at 30")
+    if counts["bloom_probe"] <= 0:
+        raise AssertionError("train_loop's pipeline launched no bloom probe")
+    sec = float(np.median(out["step_seconds"][5:]))
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    print(f"   losses {losses[0]:.4f} -> {losses[-1]:.4f} (mean of the "
+          f"last 5 {np.mean(losses[-5:]):.4f}); {sec:.4f} s/step (median "
+          f"of steps 5-30), {tokens / sec:.1f} tokens/s; first step "
+          f"{out['step_seconds'][0]:.3f}s; wall {out['seconds']:.2f}s; "
+          f"peak {peak / 1e9:.2f} GB (max_memory_allocated; {base / 1e9:.2f} "
+          f"GB held before the run) against {mem['sum'] / 1e9:.2f} GB "
+          f"reckoned; bloom launches "
+          f"{counts['bloom_probe']}", flush=True)
+    step = tr.build_train_step(cfg, warmup=20, total_steps=TRAIN["steps"])
+    g = torch.Generator(device=dev).manual_seed(5)
+    batch = {k: torch.randint(0, cfg.vocab, (TRAIN["batch"], TRAIN["seq"]),
+                              generator=g, device=dev, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    state = out["state"]
+    profile_lm("bf16 train step", lambda: step(state, batch)[1]["loss"]
+               .item(), top=8)
+    del out, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_f32_card_vs_cpu(tr, dev) -> None:
+    """qwen2.5-3b's widths at 2 layers in float32 (TF32 off), the same
+    weights made on the CPU and copied to the card: one ``build_train_step``
+    step on each.  Gates: loss within rtol 1e-5, gnorm within rtol 1e-4,
+    every updated parameter within atol 1e-6 of the CPU's."""
+    import copy
+
+    cfg = dataclasses.replace(tr.get_arch(LM_ARCH), n_layers=2,
+                              dtype="float32")
+    cpu_model = tr.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    rng = np.random.default_rng(3)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64))
+                                 .astype(np.int32))
+             for k in ("tokens", "labels")}
+    step = tr.build_train_step(cfg)
+    t0 = time.perf_counter()
+    _, mc = step(tr.init_train_state(cfg, cpu_model), batch)
+    cpu_s = time.perf_counter() - t0
+    _, mg = step(tr.init_train_state(cfg, card_model),
+                 {k: v.to(dev) for k, v in batch.items()})
+    rel = {k: abs(float(mg[k]) - float(mc[k])) / abs(float(mc[k]))
+           for k in ("loss", "gnorm")}
+    diff = max(float((p.detach().cpu() - q.detach()).abs().max())
+               for p, q in zip(card_model.parameters(),
+                               cpu_model.parameters()))
+    print(f"   f32 step, {cfg.num_params():,} parameters, batch 2 x 64: "
+          f"loss {float(mg['loss']):.6f} (card) / {float(mc['loss']):.6f} "
+          f"(CPU), rel {rel['loss']:.3g}; gnorm rel {rel['gnorm']:.3g}; "
+          f"largest |parameter difference| {diff:.3g}; CPU step "
+          f"{cpu_s:.2f}s", flush=True)
+    if rel["loss"] > 1e-5 or rel["gnorm"] > 1e-4 or diff > 1e-6:
+        raise AssertionError("the card's f32 step differs from the CPU's")
+    del card_model
+    torch.cuda.empty_cache()
+
+
+def train_fault_replay(tr, dev) -> None:
+    """The reduced qwen2.5-3b trained 30 steps with a failure injected at
+    step 27 (restored from the checkpoint at 25 and replayed) against the
+    same run without one.  Gates: one restart; every loss, replayed ones
+    included, within rtol 1e-5 of the uninterrupted run's step."""
+    import tempfile
+
+    cfg = tr.get_arch(LM_ARCH).reduced()
+    plain = tr.train_loop(cfg, device=dev, log_every=100, **TRAIN)
+    with tempfile.TemporaryDirectory() as ckpt:
+        failed = tr.train_loop(cfg, ckpt_dir=ckpt, fail_at=(TRAIN_FAIL_AT,),
+                               device=dev, log_every=100, **TRAIN)
+    want = plain["losses"][:TRAIN_FAIL_AT] + plain["losses"][
+        TRAIN_CKPT_EVERY:]
+    got = failed["losses"]
+    if failed["restarts"] != 1 or len(got) != len(want):
+        raise AssertionError(f"restarts {failed['restarts']}, {len(got)} "
+                             f"losses")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    print(f"   reduced {LM_ARCH}: failure at step {TRAIN_FAIL_AT}, "
+          f"{failed['restarts']} restart, {len(got)} steps run; largest "
+          f"relative loss difference from the uninterrupted run {rel:.3g} "
+          f"(replayed steps {got[TRAIN_FAIL_AT:]} against "
+          f"{want[TRAIN_FAIL_AT:]})", flush=True)
+    if rel > 1e-5:
+        raise AssertionError("the replayed losses differ")
+
+
 def kernel_entry(name, source, replaces, launches, t, err, library_ms):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -2345,7 +2545,9 @@ def main() -> int:
         from repro_torch.kernels.hashing import fold64
         from repro_torch.configs import get_arch
         from repro_torch.kernels import flash_attention as fa
+        from repro_torch.launch import steps as train_steps
         from repro_torch.launch.serve import serve_batch
+        from repro_torch.launch.train import quip_batch_stream, train_loop
         from repro_torch.models import (decode_step, init_caches,
                                         init_params, prefill)
     except ImportError as exc:
@@ -2358,6 +2560,12 @@ def main() -> int:
                                prefill=prefill, decode_step=decode_step,
                                init_caches=init_caches,
                                serve_batch=serve_batch)
+    tr = types.SimpleNamespace(
+        get_arch=get_arch, init_params=init_params,
+        quip_batch_stream=quip_batch_stream, train_loop=train_loop,
+        abstract_train_state=train_steps.abstract_train_state,
+        build_train_step=train_steps.build_train_step,
+        init_train_state=train_steps.init_train_state)
     dev = torch.device("cuda")
     card = card_line()
     t_start = time.perf_counter()
@@ -2567,6 +2775,25 @@ def main() -> int:
                f"paths, profile, serve_batch"):
         lm_launches = lm_bf16_run(dev, lm, fa)
     torch.cuda.empty_cache()
+    t_train = time.perf_counter()
+    with phase("train (slice 10): the trainer's QUIP stream on the card, "
+               "kernel == plain"):
+        train_pipe = train_pipeline(tr, launches, dev, mods[2])
+    with phase(f"train (slice 10): {LM_ARCH} at full width, train_loop "
+               f"{TRAIN}"):
+        train_full = train_full_width(tr, launches, dev)
+    with phase(f"train (slice 10): one f32 step at {LM_ARCH}'s widths, "
+               f"2 layers, card == CPU"):
+        train_f32_card_vs_cpu(tr, dev)
+    with phase(f"train (slice 10): a failure at step {TRAIN_FAIL_AT} "
+               f"replayed on the card"):
+        train_fault_replay(tr, dev)
+    print(f"   train (slice 10): {time.perf_counter() - t_train:.1f}s for "
+          f"its four phases", flush=True)
+    # the training path's two runs, each read with its counters set to 0
+    # just before it, join the QUIP paths' launches
+    for k in main_launches:
+        main_launches[k] += train_pipe[k] + train_full[k]
 
     with phase("kernel times at the main path's shapes"):
         if rec["bloom_folded_calls"]:
@@ -2635,6 +2862,8 @@ def main() -> int:
         print(f"   served {name}: {summ['queries']} queries, wall "
               f"{wall:.3f}s, p50 {summ['p50_latency_s']:.3f}s, p95 "
               f"{summ['p95_latency_s']:.3f}s")
+    print(f"   slice 10 launches: pipeline {train_pipe}, full-width "
+          f"train_loop {train_full}")
     print(f"   slice 4 launches: flash_attention (tensor core) {lm_launches} "
           f"per bf16 {LM_ARCH} prefill, flash_attention_f32 (CUDA core) "
           f"{lm_f32_launches} per f32 prefill")

@@ -8,7 +8,9 @@ reference's ``"pallas"``) without an attention softcap runs the
 hand-written flash-attention kernel through ``ops.flash_attention``;
 ``"chunked"``, and ``"cuda"`` with a softcap, run the plain online softmax
 of ``models/flash.py``; ``"naive"`` runs the materialised softmax
-(``_sdpa``).  The decode path always runs ``_sdpa``, as in the reference.
+(``_sdpa``).  The kernel has no backward: its path raises when autograd
+would differentiate through it.  The decode path always runs ``_sdpa``,
+as in the reference.
 
 The reference's sharding ``constrain`` calls are no-ops without a device
 mesh and are left out.  MLA is not ported yet (ROADMAP Queue 1 item 12):
@@ -131,6 +133,11 @@ def gqa_apply(p: GQA, cfg: ArchConfig, x: torch.Tensor,
     k = apply_rope(k, cos, sin)
     window = cfg.local_window if local else None
     if cfg.attn_impl == "cuda" and cfg.attn_softcap is None:
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise NotImplementedError(
+                "attn_impl='cuda' runs the flash-attention kernel, which has "
+                "no backward (nor has the reference's Pallas kernel): train "
+                "with attn_impl='chunked' or 'naive'")
         out = ops.flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
             window=window).reshape(b, s, -1)

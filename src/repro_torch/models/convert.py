@@ -5,7 +5,9 @@ torch cannot repeat, so the packages are compared on the reference's own
 parameters: :func:`params_from_reference` takes the pytree of
 ``repro.models.init_params`` with numpy arrays as leaves, unstacks each
 segment's leading ``repeats`` axis into one block per layer, in layer
-order, and copies every leaf into the port's :class:`~models.model.LM`.
+order, and copies every leaf into the port's :class:`~models.model.LM`;
+:func:`train_state_from_reference` carries a whole train state (the
+parameters and the AdamW moments) across the same way.
 This module imports neither JAX nor the reference; the caller turns the
 leaves into numpy arrays (``np.asarray``).
 """
@@ -20,9 +22,11 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ops import resolve_device
+from repro_torch.launch.steps import init_train_state
 from repro_torch.models.model import LM
 
-__all__ = ["config_from_reference", "params_from_reference"]
+__all__ = ["config_from_reference", "params_from_reference",
+           "reference_leaves", "train_state_from_reference"]
 
 
 def config_from_reference(ref_cfg: Any) -> ArchConfig:
@@ -51,7 +55,7 @@ def _layer(tree: Any, r: int) -> Any:
     return np.asarray(tree)[r]
 
 
-def _copy(param: torch.nn.Parameter, leaf: Any, name: str) -> None:
+def _copy(param: torch.Tensor, leaf: Any, name: str) -> None:
     src = _tensor(leaf)
     if tuple(src.shape) != tuple(param.shape) or src.dtype != param.dtype:
         raise ValueError(f"{name}: reference {src.dtype} {tuple(src.shape)} "
@@ -60,14 +64,36 @@ def _copy(param: torch.nn.Parameter, leaf: Any, name: str) -> None:
         param.copy_(src)
 
 
-def _copy_module(module: torch.nn.Module, leaves: Dict[str, Any],
-                 name: str) -> None:
-    have = {n for n, p in module.named_parameters(recurse=False)}
-    if set(leaves) != have:
-        raise ValueError(f"{name}: reference leaves {sorted(leaves)} against "
-                         f"port parameters {sorted(have)}")
-    for leaf_name, leaf in leaves.items():
-        _copy(getattr(module, leaf_name), leaf, f"{name}.{leaf_name}")
+def reference_leaves(ref_tree: Dict[str, Any], model: LM) -> Dict[str, Any]:
+    """The leaves of a tree shaped like the reference's parameters (its
+    parameters, gradients or AdamW moments), each segment's stacked
+    ``repeats`` axis unstacked, under the names of ``model``'s parameters
+    (``blocks.3.mixer.wq``, ``blocks.3.ln1.scale``, ...).  Raises when the
+    tree and the model do not hold the same parameters."""
+    out = {"embed": ref_tree["embed"], "final_norm.scale":
+           ref_tree["final_norm"]}
+    if "lm_head" in ref_tree:
+        out["lm_head"] = ref_tree["lm_head"]
+    i = 0
+    for si, (seg, seg_tree) in enumerate(zip(model.segs,
+                                             ref_tree["segments"])):
+        if "shared" in seg_tree:
+            raise NotImplementedError("weight-shared blocks are not ported")
+        for r in range(seg.repeats):
+            for j, _ in enumerate(seg.pattern):
+                for key, val in _layer(seg_tree["blocks"][j], r).items():
+                    if isinstance(val, dict):  # a mixer's or MLP's weights
+                        out.update({f"blocks.{i}.{key}.{k}": v
+                                    for k, v in val.items()})
+                    else:  # a norm's scale
+                        out[f"blocks.{i}.{key}.scale"] = val
+                i += 1
+    have = {n for n, _ in model.named_parameters()}
+    if set(out) != have:
+        raise ValueError(f"reference leaves without a port parameter "
+                         f"{sorted(set(out) - have)}, port parameters "
+                         f"without a reference leaf {sorted(have - set(out))}")
+    return out
 
 
 def params_from_reference(ref_params: Dict[str, Any], cfg: Any,
@@ -80,29 +106,29 @@ def params_from_reference(ref_params: Dict[str, Any], cfg: Any,
     if not isinstance(cfg, ArchConfig):
         cfg = config_from_reference(cfg)
     model = LM(cfg, device=resolve_device(device))
-    _copy(model.embed, ref_params["embed"], "embed")
-    _copy(model.final_norm.scale, ref_params["final_norm"], "final_norm")
-    if model.lm_head is not None:
-        _copy(model.lm_head, ref_params["lm_head"], "lm_head")
-    blocks = iter(model.blocks)
-    for si, (seg, seg_params) in enumerate(zip(model.segs,
-                                               ref_params["segments"])):
-        if "shared" in seg_params:
-            raise NotImplementedError("weight-shared blocks are not ported")
-        for r in range(seg.repeats):
-            for j, _ in enumerate(seg.pattern):
-                leaves = _layer(seg_params["blocks"][j], r)
-                block = next(blocks)
-                where = f"segments[{si}].blocks[{j}][{r}]"
-                _copy(block.ln1.scale, leaves.pop("ln1"), where + ".ln1")
-                _copy_module(block.mixer, leaves.pop("mixer"),
-                             where + ".mixer")
-                if block.mlp is not None:
-                    _copy(block.ln2.scale, leaves.pop("ln2"), where + ".ln2")
-                    _copy_module(block.mlp, leaves.pop("mlp"), where + ".mlp")
-                if leaves:
-                    raise ValueError(f"{where}: leaves {sorted(leaves)} have "
-                                     f"no place in the port's block")
-    if next(blocks, None) is not None:
-        raise ValueError("the reference has fewer layers than the config")
+    params = dict(model.named_parameters())
+    for name, leaf in reference_leaves(ref_params, model).items():
+        _copy(params[name], leaf, name)
     return model
+
+
+def train_state_from_reference(ref_state: Dict[str, Any], cfg: Any,
+                               device="cuda") -> Dict[str, Any]:
+    """The port's train state (``launch/steps.py::init_train_state``)
+    holding the reference's ``init_train_state`` tree (numpy leaves): the
+    parameters in the model, the AdamW moments ``m``/``v`` under the same
+    parameter names, the optimizer's ``count`` and the ``step``."""
+    if not isinstance(cfg, ArchConfig):
+        cfg = config_from_reference(cfg)
+    model = params_from_reference(ref_state["params"], cfg, device)
+    state = init_train_state(cfg, model)
+    ref_opt = ref_state["opt"]
+    if "m" not in ref_opt or "m" not in state["opt"]:
+        raise NotImplementedError("only AdamW states are carried across")
+    for key in ("m", "v"):
+        for name, leaf in reference_leaves(ref_opt[key], model).items():
+            _copy(state["opt"][key][name], leaf, f"opt.{key}.{name}")
+    with torch.no_grad():
+        state["opt"]["count"].fill_(int(np.asarray(ref_opt["count"])))
+        state["step"].fill_(int(np.asarray(ref_state["step"])))
+    return state

@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
@@ -116,13 +117,15 @@ def _embed_inputs(model: LM, cfg: ArchConfig,
                   batch: Dict[str, Any]) -> torch.Tensor:
     if uses_embeds(cfg):
         return batch["embeds"].to(model.embed.dtype)
-    return model.embed[batch["tokens"].long()]
+    # a gather whose gradient sums each row's entries in a fixed order (an
+    # indexed read's gradient adds them with atomics on the CPU)
+    return F.embedding(batch["tokens"].long(), model.embed)
 
 
 def loss_fn(model: LM, cfg: ArchConfig, batch: Dict[str, Any],
             remat: str = "full") -> torch.Tensor:
-    """Mean next-token cross-entropy over the labels ``>= 0`` (forward
-    only: the training path is not ported yet)."""
+    """Mean next-token cross-entropy over the labels ``>= 0``; ``remat``
+    as in :func:`~repro_torch.models.transformer.forward_segments`."""
     x = _embed_inputs(model, cfg, batch)
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
@@ -164,7 +167,7 @@ def decode_step(model: LM, caches: List[torch.Tensor], cfg: ArchConfig,
                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """tokens: (B, 1); pos: (B,) current lengths → (logits (B, vocab)
     float32, caches).  The caches are updated in place."""
-    x = model.embed[tokens.long()]
+    x = F.embedding(tokens.long(), model.embed)
     x, caches = decode_segments(model.blocks, caches, cfg, model.segs, x,
                                 pos)
     x = model.final_norm(x)

@@ -8,7 +8,8 @@ so local/global patterns follow the reference layer for layer.
 
 Dense attention blocks are ported.  SSM, MoE and weight-shared attention
 blocks raise ``NotImplementedError`` (ROADMAP Queue 1 item 12).  ``remat``
-is accepted and ignored: it changes no forward value.
+checkpoints each period of a segment, as the reference's ``jax.checkpoint``
+of its scan body does (``forward_segments``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,10 @@ from typing import List, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
@@ -130,15 +135,51 @@ def _apply_block(p: Block, cfg: ArchConfig, spec: BlockSpec, x, positions,
     return x
 
 
+#: the matrix products whose outputs ``remat="dots"`` keeps: those without
+#: batch dimensions, as the reference's ``dots_with_no_batch_dims_saveable``
+#: (``x @ w`` on a 3-d ``x`` reaches ``mm``; the attention's batched
+#: einsums reach ``bmm`` and are recomputed, as there)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_REMATS = ("none", "full", "dots")
+
+
+def _apply_period(blocks, cfg: ArchConfig, pattern, x, positions,
+                  causal: bool) -> torch.Tensor:
+    for p, spec in zip(blocks, pattern):
+        x = _apply_block(p, cfg, spec, x, positions, causal)
+    return x
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(list(_DOTS))
+
+
 def forward_segments(blocks: nn.ModuleList, cfg: ArchConfig,
                      segs: List[SegmentSpec], x, positions,
                      causal: bool = True, remat: str = "full"
                      ) -> torch.Tensor:
-    """Every block in layer order.  ``remat`` (the reference's
-    rematerialisation policy) changes no forward value and is ignored."""
-    del remat
-    for p, spec in zip(blocks, layer_specs(segs)):
-        x = _apply_block(p, cfg, spec, x, positions, causal)
+    """Every block in layer order.  ``remat`` sets what the backward pass
+    keeps of each period (one repeat of a segment's pattern): ``"none"``
+    every activation; ``"full"`` the period's input alone, the rest
+    recomputed (``torch.utils.checkpoint``); ``"dots"`` also the outputs
+    of the matrix products without batch dimensions.  The values are the
+    same under all three; without autograd (``no_grad``, inference) the
+    period runs plainly."""
+    if remat not in _REMATS:
+        raise ValueError(f"remat={remat!r} is not one of {_REMATS}")
+    keep_all = remat == "none" or not torch.is_grad_enabled()
+    layers = iter(blocks)
+    for seg in segs:
+        for _ in range(seg.repeats):
+            period = [next(layers) for _ in seg.pattern]
+            args = (period, cfg, seg.pattern, x, positions, causal)
+            if keep_all:
+                x = _apply_period(*args)
+            elif remat == "full":
+                x = checkpoint(_apply_period, *args, use_reentrant=False)
+            else:
+                x = checkpoint(_apply_period, *args, use_reentrant=False,
+                               context_fn=_dots_contexts)
     return x
 
 

@@ -1018,3 +1018,98 @@ def test_service_device_memory_returns_after_close(cuda_device):
     after = torch.cuda.memory_allocated(cuda_device)
     assert held >= after
     assert abs(after - before) <= 1 << 20, (before, held, after)
+
+
+# --------------------------------------------------------------------------- #
+# the training path (slice 10)
+# --------------------------------------------------------------------------- #
+def test_train_step_on_card_equals_cpu(cuda_device):
+    """Three AdamW steps of the reduced qwen2.5-3b in float32 (TF32 off)
+    from the same weights, on the card and on the CPU: losses within
+    rtol 1e-5, gnorm within 1e-4, parameters within atol 1e-5."""
+    import copy
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps as S
+    from repro_torch.models import init_params
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_arch("qwen2.5-3b").reduced()
+    cpu_model = init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    card_model = copy.deepcopy(cpu_model).to(cuda_device)
+    hp = dict(peak_lr=1e-4, warmup=1, total_steps=10)
+    states = {d: S.init_train_state(cfg, m) for d, m in
+              (("cpu", cpu_model), ("cuda", card_model))}
+    step = S.build_train_step(cfg, **hp)
+    rng = np.random.default_rng(0)
+    for _ in range(3):
+        b = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 32)
+                                              ).astype(np.int32))
+             for k in ("tokens", "labels")}
+        _, mc = step(states["cpu"], b)
+        _, mg = step(states["cuda"], {k: v.to(cuda_device)
+                                      for k, v in b.items()})
+        np.testing.assert_allclose(float(mg["loss"]), float(mc["loss"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(float(mg["gnorm"]), float(mc["gnorm"]),
+                                   rtol=1e-4)
+    for (name, p), (_, q) in zip(card_model.named_parameters(),
+                                 cpu_model.named_parameters()):
+        np.testing.assert_allclose(p.detach().cpu().numpy(),
+                                   q.detach().numpy(), rtol=0, atol=1e-5,
+                                   err_msg=name)
+    assert int(states["cuda"]["step"]) == 3
+
+
+def test_async_checkpointer_snapshots_a_card_state(cuda_device, tmp_path):
+    """``save`` copies a card's tensors to the host before it returns: an
+    in-place update launched right after it does not reach the file, and
+    the restore writes back into the card's tensors."""
+    from repro_torch.checkpoint import AsyncCheckpointer, restore_checkpoint
+
+    x = torch.arange(1 << 24, dtype=torch.float32, device=cuda_device)
+    w = torch.randn(1 << 20, device=cuda_device).to(torch.bfloat16)
+    want = (x.cpu().clone(), w.cpu().clone())
+    ck = AsyncCheckpointer(str(tmp_path))
+    ck.save(1, {"x": x, "w": w})
+    x.mul_(-1)
+    w.zero_()
+    ck.wait()
+    like = {"x": torch.zeros_like(x), "w": torch.zeros_like(w)}
+    restore_checkpoint(str(tmp_path), like)
+    assert like["x"].device.type == "cuda"
+    assert torch.equal(like["x"].cpu(), want[0])
+    assert torch.equal(like["w"].cpu(), want[1])
+
+
+def test_quip_stage_kernel_and_plain_batches_equal(cuda_device, monkeypatch):
+    """The trainer's QUIP stream with the bloom probes on the card and
+    with their plain version (``QUIPT_BLOOM_IMPL=ref``): the same first
+    64 batches; only the kernel run launches the probe kernel.  The
+    engines' clocks are stopped, so both adaptive runs decide alike."""
+    import types
+
+    import repro_torch.core.executor as executor
+    import repro_torch.imputers.base as imputers_base
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import quip_batch_stream
+
+    frozen = types.SimpleNamespace(perf_counter=lambda: 0.0)
+    for mod in (executor, imputers_base):
+        monkeypatch.setattr(mod, "time", frozen)
+    cfg = get_arch("qwen2.5-3b")
+
+    def run():
+        stream = quip_batch_stream(cfg, 8, 128, device=cuda_device)
+        return [next(stream) for _ in range(64)]
+
+    before = bp.keys_launches
+    kernel = run()
+    launched = bp.keys_launches - before
+    monkeypatch.setenv("QUIPT_BLOOM_IMPL", "ref")
+    plain = run()
+    assert launched > 0 and bp.keys_launches == before + launched
+    for a, b in zip(kernel, plain):
+        for k in ("tokens", "labels"):
+            np.testing.assert_array_equal(a[k], b[k])

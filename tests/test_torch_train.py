@@ -1,0 +1,340 @@
+"""The port's LM training path (``repro_torch.launch.steps`` and
+``launch/train.py``, ``models/convert.py::train_state_from_reference``,
+``forward_segments``' ``remat``) against the reference's, on reduced
+configs (2 layers, d 64, 4 heads, vocab 256, float32) on the CPU.
+
+Both packages start from the reference's own train state, carried across.
+Tolerances: losses within rtol 1e-5; gradients (before the clip) within
+rtol 1e-4 / atol 1e-6; parameters after 3 steps within atol 1e-5 (the
+f32 sums run in other orders in the two libraries).  The learning rate is
+raised (peak 1e-4, warmup 1) so that 3 steps move the parameters by about
+3e-4, well beyond those tolerances.  A larger rate would not compare the
+ports but AdamW's conditioning: where a gradient is near zero against its
+rounding noise (qwen's key bias on the slowest rotary frequencies), the
+update ``g / (|g| + 1e-8)`` turns noise of 1e-10 into a step of up to
+``lr``, and both packages then walk apart by a fraction of ``lr``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import get_arch as jax_get_arch
+from repro.launch import steps as RS
+from repro.models import init_params as jax_init_params
+from repro.models import loss_fn as jax_loss_fn
+from repro_torch.configs import get_arch
+from repro_torch.launch import steps as S
+from repro_torch.launch.train import main as train_main
+from repro_torch.launch.train import train_loop
+from repro_torch.models import decode_step, init_caches, init_params, prefill
+from repro_torch.models.convert import (
+    config_from_reference,
+    params_from_reference,
+    reference_leaves,
+    train_state_from_reference,
+)
+from repro_torch.models.model import uses_embeds
+
+DENSE = ["qwen2.5-3b", "qwen3-8b", "gemma-7b", "gemma2-27b",
+         "hubert-xlarge", "pixtral-12b"]
+UNPORTED = ["mamba2-370m", "deepseek-v3-671b", "moonshot-v1-16b-a3b",
+            "zamba2-1.2b"]
+HPARAMS = dict(peak_lr=1e-4, warmup=1, total_steps=10)
+
+
+def _reference_state(arch: str, seed: int = 0, **overrides):
+    cfg = dataclasses.replace(jax_get_arch(arch).reduced(), attn_q_chunk=16,
+                              attn_k_chunk=16, **overrides)
+    params = jax_init_params(cfg, jax.random.PRNGKey(seed))
+    return cfg, RS.init_train_state(cfg, params)
+
+
+def _batches(cfg, n: int, b: int = 2, s: int = 24, seed: int = 0):
+    """``n`` numpy batches; some labels masked (-1)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        labels = rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
+        labels[0, :3] = -1
+        batch = {"labels": labels}
+        if uses_embeds(cfg):
+            batch["embeds"] = rng.normal(0, 1, (b, s, cfg.d_model)
+                                         ).astype(np.float32)
+        else:
+            batch["tokens"] = rng.integers(0, cfg.vocab, (b, s)
+                                           ).astype(np.int32)
+        out.append(batch)
+    return out
+
+
+def _to_jax(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _to_port(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _numpy(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _close_named(got: dict, ref_tree, model, rtol, atol, what=""):
+    want = reference_leaves(_numpy(ref_tree), model)
+    assert sorted(got) == sorted(want)
+    for name, leaf in want.items():
+        np.testing.assert_allclose(got[name].detach().float().numpy(),
+                                   np.asarray(leaf, dtype=np.float32),
+                                   rtol=rtol, atol=atol,
+                                   err_msg=f"{what}{name}")
+
+
+# --------------------------------------------------------------------------- #
+# the train step against the reference's
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("arch", DENSE)
+def test_train_step_twin(arch):
+    """Three steps from the same state: the losses, gnorm, lr, and the
+    parameters and moments after; before each step the gradients of both
+    packages at the reference's parameters of that step (the two runs'
+    parameters part by rounding, which the gradients would amplify)."""
+    cfg, ref_state = _reference_state(arch)
+    start = _numpy(ref_state["params"])
+    state = train_state_from_reference(_numpy(ref_state), cfg, device="cpu")
+    port_cfg = config_from_reference(cfg)
+    model = state["params"]
+    ref_step = jax.jit(RS.build_train_step(cfg, **HPARAMS))
+    ref_grad = jax.jit(jax.grad(
+        lambda p, b: jax_loss_fn(p, cfg, b, remat="full")))
+    step = S.build_train_step(port_cfg, **HPARAMS)
+    for i, batch in enumerate(_batches(cfg, 3, seed=1)):
+        jb, tb = _to_jax(batch), _to_port(batch)
+        at_ref = params_from_reference(_numpy(ref_state["params"]), cfg,
+                                       device="cpu")
+        _, grads = S.loss_and_grads(at_ref, port_cfg, tb)
+        _close_named(grads, ref_grad(ref_state["params"], jb), at_ref, 1e-4,
+                     1e-6, f"step {i} grad ")
+        ref_state, ref_m = ref_step(ref_state, jb)
+        out, m = step(state, tb)
+        assert out is state
+        np.testing.assert_allclose(float(m["loss"]), float(ref_m["loss"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(float(m["gnorm"]), float(ref_m["gnorm"]),
+                                   rtol=1e-4)
+        np.testing.assert_allclose(float(m["lr"]), float(ref_m["lr"]),
+                                   rtol=1e-6)
+    assert int(state["step"]) == int(ref_state["step"]) == 3
+    assert int(state["opt"]["count"]) == 3
+    named = dict(model.named_parameters())
+    _close_named(named, ref_state["params"], model, 0.0, 1e-5, "param ")
+    for key in ("m", "v"):
+        _close_named(state["opt"][key], ref_state["opt"][key], model, 1e-4,
+                     1e-6, f"{key} ")
+    # the parameters moved well beyond the tolerance
+    start = reference_leaves(start, model)
+    moved = max(float(np.abs(named[n].detach().numpy() - start[n]).max())
+                for n in start)
+    assert moved > 1e-4
+
+
+def test_train_state_from_reference_carries_everything():
+    """Moments, count and step of a state in mid-run come across exactly."""
+    cfg, ref_state = _reference_state("qwen2.5-3b", seed=2)
+    step = jax.jit(RS.build_train_step(cfg, **HPARAMS))
+    for batch in _batches(cfg, 2, seed=3):
+        ref_state, _ = step(ref_state, _to_jax(batch))
+    state = train_state_from_reference(_numpy(ref_state), cfg, device="cpu")
+    model = state["params"]
+    assert int(state["step"]) == 2 and int(state["opt"]["count"]) == 2
+    assert state["step"].dtype == state["opt"]["count"].dtype == torch.int32
+    named = dict(model.named_parameters())
+    _close_named(named, ref_state["params"], model, 0.0, 0.0)
+    for key in ("m", "v"):
+        _close_named(state["opt"][key], ref_state["opt"][key], model, 0.0,
+                     0.0)
+        assert all(t.dtype == torch.float32
+                   for t in state["opt"][key].values())
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma2-27b"])
+def test_remat_policies_give_equal_values(arch):
+    """``remat`` none / full / dots: the same loss and the same gradients
+    (exactly), equal to the reference's loss."""
+    cfg, ref_state = _reference_state(arch, seed=4)
+    state = train_state_from_reference(_numpy(ref_state), cfg, device="cpu")
+    port_cfg = config_from_reference(cfg)
+    batch = _batches(cfg, 1, b=2, s=40, seed=4)[0]
+    runs = {r: S.loss_and_grads(state["params"], port_cfg, _to_port(batch),
+                                remat=r) for r in ("none", "full", "dots")}
+    loss, grads = runs["none"]
+    for r in ("full", "dots"):
+        assert torch.equal(runs[r][0], loss), r
+        for name, g in grads.items():
+            assert torch.equal(runs[r][1][name], g), (r, name)
+    want = float(jax_loss_fn(ref_state["params"], cfg, _to_jax(batch),
+                             remat="full"))
+    np.testing.assert_allclose(float(loss), want, rtol=1e-5)
+    with pytest.raises(ValueError, match="remat"):
+        S.loss_and_grads(state["params"], port_cfg, _to_port(batch),
+                         remat="nothing")
+
+
+def test_remat_recomputes_what_the_policy_says():
+    """Counted at the dispatcher over one loss and its gradients: ``full``
+    runs each block's forward twice (every op again), ``dots`` runs again
+    all but the unbatched matrix products (``mm``), whose outputs it kept,
+    ``none`` runs nothing again."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            self.ops[name] = self.ops.get(name, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    cfg = get_arch("qwen2.5-3b").reduced()
+    model = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = _to_port(_batches(cfg, 1)[0])
+    counts = {}
+    for remat in ("none", "full", "dots"):
+        with Count() as c:
+            S.loss_and_grads(model, cfg, batch, remat=remat)
+        counts[remat] = c.ops
+    assert counts["full"]["mm"] > counts["none"]["mm"] == \
+        counts["dots"]["mm"]
+    for op in ("bmm", "rsqrt"):
+        assert counts["dots"][op] == counts["full"][op] > \
+            counts["none"][op]
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_abstract_train_state_matches_eval_shape(arch):
+    """At full width: every parameter's and moment's shape and dtype equal
+    the reference's ``eval_shape``, and the counters are int32 scalars;
+    nothing is allocated (the ``meta`` device)."""
+    cfg = jax_get_arch(arch)
+    ref = RS.abstract_train_state(cfg)
+    ref_zeros = jax.tree.map(
+        lambda s: np.broadcast_to(np.zeros((), s.dtype), s.shape), ref)
+    state = S.abstract_train_state(get_arch(arch))
+    model = state["params"]
+    named = dict(model.named_parameters())
+    assert all(p.device.type == "meta" for p in named.values())
+    for tree, ref_tree in ((named, ref_zeros["params"]),
+                           (state["opt"]["m"], ref_zeros["opt"]["m"]),
+                           (state["opt"]["v"], ref_zeros["opt"]["v"])):
+        want = reference_leaves(ref_tree, model)
+        assert sorted(tree) == sorted(want)
+        for name, leaf in want.items():
+            assert tuple(tree[name].shape) == leaf.shape, name
+            assert str(tree[name].dtype).removeprefix("torch.") == \
+                leaf.dtype.name, name
+    for t, r in ((state["step"], ref["step"]),
+                 (state["opt"]["count"], ref["opt"]["count"])):
+        assert t.dtype == torch.int32 and r.dtype == jnp.int32
+        assert t.shape == r.shape == ()
+    assert sum(p.numel() for p in named.values()) == sum(
+        leaf.size for leaf in jax.tree_util.tree_leaves(ref["params"]))
+
+
+def test_optimizer_for_follows_the_reference():
+    for arch in DENSE + UNPORTED:
+        assert S.optimizer_for(get_arch(arch)) == \
+            RS.optimizer_for(jax_get_arch(arch))
+    assert S.optimizer_for(get_arch("deepseek-v3-671b")) == "adafactor"
+
+
+def test_cuda_attention_has_no_backward():
+    """``attn_impl="cuda"`` (the reference's ``"pallas"``, whose step also
+    raises) cannot be differentiated: the step raises and leaves the state
+    as it was; prefill still runs the path."""
+    cfg = dataclasses.replace(get_arch("qwen2.5-3b").reduced(),
+                              attn_impl="cuda")
+    model = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    before = {n: p.clone() for n, p in model.named_parameters()}
+    state = S.init_train_state(cfg, model)
+    batch = _to_port(_batches(cfg, 1)[0])
+    with pytest.raises(NotImplementedError, match="no backward"):
+        S.build_train_step(cfg)(state, batch)
+    assert int(state["step"]) == 0
+    assert all(torch.equal(p, before[n]) for n, p in model.named_parameters())
+    with torch.inference_mode():
+        assert prefill(model, cfg, batch).shape == (2, cfg.vocab)
+
+
+@pytest.mark.parametrize("arch", UNPORTED)
+def test_unported_blocks_raise(arch):
+    cfg = get_arch(arch).reduced()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        S.abstract_train_state(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train_loop(cfg, steps=1, batch=2, seq=8, device="cpu")
+
+
+def test_serve_steps_equal_the_model_calls():
+    cfg = get_arch("qwen2.5-3b").reduced()
+    model = init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 6),
+                         generator=torch.Generator().manual_seed(3))
+    with torch.inference_mode():
+        assert torch.equal(S.build_serve_step(cfg, "prefill")(
+            model, {"tokens": toks}), prefill(model, cfg, {"tokens": toks}))
+        decode = S.build_serve_step(cfg, "decode")
+        c1 = init_caches(cfg, 2, 6, device="cpu")
+        c2 = init_caches(cfg, 2, 6, device="cpu")
+        for t in range(6):
+            pos = torch.full((2,), t, dtype=torch.int32)
+            got, c1 = decode(model, c1, {"tokens": toks[:, t:t + 1],
+                                         "pos": pos})
+            want, c2 = decode_step(model, c2, cfg, toks[:, t:t + 1], pos)
+            assert torch.equal(got, want)
+
+
+# --------------------------------------------------------------------------- #
+# the trainer
+# --------------------------------------------------------------------------- #
+def test_train_loop_runs_on_the_cpu(capsys):
+    """Three steps on the reduced qwen2.5-3b from the QUIP stream: finite
+    losses, the step counter at 3, and the same run twice is the same."""
+    cfg = get_arch("qwen2.5-3b").reduced()
+    out = train_loop(cfg, steps=3, batch=4, seq=32, device="cpu",
+                     log_every=1)
+    assert len(out["losses"]) == 3 and out["restarts"] == 0
+    assert all(np.isfinite(out["losses"]))
+    assert out["first_loss"] == out["losses"][0]
+    assert int(out["state"]["step"]) == 3
+    assert "step    3" in capsys.readouterr().out
+    again = train_loop(cfg, steps=3, batch=4, seq=32, device="cpu")
+    assert again["losses"] == out["losses"]
+
+
+def test_train_loop_with_embeds():
+    """A modality stub (pixtral: embeddings in, labels from the stream)."""
+    out = train_loop(get_arch("pixtral-12b").reduced(), steps=2, batch=2,
+                     seq=16, device="cpu")
+    assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
+
+
+def test_train_main_cli(capsys):
+    assert train_main(["--arch", "qwen2.5-3b", "--reduced", "--steps", "2",
+                       "--batch", "2", "--seq", "16", "--device",
+                       "cpu"]) == 0
+    assert "done: loss" in capsys.readouterr().out
+
+
+def test_train_loop_needs_a_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device runs")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_loop(get_arch("qwen2.5-3b").reduced(), steps=1, batch=2, seq=8)
