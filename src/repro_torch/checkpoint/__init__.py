@@ -5,6 +5,11 @@ from repro_torch.checkpoint.ckpt import (
     save_checkpoint,
     tree_leaves,
 )
+from repro_torch.checkpoint.reference import (
+    restore_reference_checkpoint,
+    save_reference_checkpoint,
+)
 
 __all__ = ["AsyncCheckpointer", "latest_step", "restore_checkpoint",
-           "save_checkpoint", "tree_leaves"]
+           "restore_reference_checkpoint", "save_checkpoint",
+           "save_reference_checkpoint", "tree_leaves"]

@@ -16,9 +16,16 @@ A tree is a nest of dicts (keys taken in sorted order, as
 an ``nn.Module`` stands for the dict of its named parameters.  numpy has no
 bfloat16, so a bf16 leaf is written as its raw 2-byte bits (uint16) and
 the manifest's ``dtypes`` records each leaf's torch dtype.  Every digest
-is over the bytes the reference hashes, so either package restores the
-other's float32 and integer files, and the port restores the reference's
-bf16 leaves (numpy loads them as 2-byte voids) bit for bit.
+is over the bytes the reference hashes, so either package restores a
+file of the other's written from a tree of the same structure (float32,
+integer and bf16 leaves bit for bit).
+
+A train state is not such a tree: the reference stacks each segment's
+blocks on a leading ``repeats`` axis (44 leaves for the reduced
+qwen2.5-3b) where the port keeps one tensor per layer and parameter (80).
+``save_checkpoint``/``restore_checkpoint`` on a port train state write and
+read the port's own layout; ``checkpoint/reference.py`` writes and reads
+the reference's, so a train state crosses the packages both ways.
 
 Unlike the reference, which returns a new tree, ``restore_checkpoint``
 writes into ``tree_like``'s tensors in place, on their device and dtype:
@@ -145,11 +152,10 @@ def _as_tensor(arr: np.ndarray, like: torch.Tensor, name: str
     return src
 
 
-@torch.no_grad()
-def restore_checkpoint(ckpt_dir: str, tree_like: Any,
-                       step: Optional[int] = None) -> Tuple[Any, int]:
-    """Restore into ``tree_like``'s tensors (in place) after verifying
-    every digest; returns ``(tree_like, step)``."""
+def _read(ckpt_dir: str, step: Optional[int]
+          ) -> Tuple[int, Dict[str, Any], Dict[str, np.ndarray]]:
+    """The step (default: the latest complete one), its manifest and its
+    leaves by name."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -163,7 +169,15 @@ def restore_checkpoint(ckpt_dir: str, tree_like: Any,
         with np.load(os.path.join(step_dir, f"shard_{s:03d}.npz")) as z:
             for k in z.files:
                 leaves_by_name[k] = z[k]
-    targets = tree_leaves(tree_like)
+    return step, manifest, leaves_by_name
+
+
+@torch.no_grad()
+def _restore_into(targets: List[torch.Tensor], step: int,
+                  manifest: Dict[str, Any],
+                  leaves_by_name: Dict[str, np.ndarray]) -> None:
+    """Copy the leaves into ``targets`` in order, after checking the count,
+    each digest, dtype and shape."""
     if len(targets) != manifest["num_leaves"]:
         raise ValueError(f"step {step} holds {manifest['num_leaves']} "
                          f"leaves, the tree {len(targets)}")
@@ -181,6 +195,14 @@ def restore_checkpoint(ckpt_dir: str, tree_like: Any,
             raise ValueError(f"{name}: checkpoint shape {arr.shape} against "
                              f"{tuple(like.shape)}")
         like.copy_(_as_tensor(arr, like, name))
+
+
+def restore_checkpoint(ckpt_dir: str, tree_like: Any,
+                       step: Optional[int] = None) -> Tuple[Any, int]:
+    """Restore into ``tree_like``'s tensors (in place) after verifying
+    every digest; returns ``(tree_like, step)``."""
+    step, manifest, leaves_by_name = _read(ckpt_dir, step)
+    _restore_into(tree_leaves(tree_like), step, manifest, leaves_by_name)
     return tree_like, step
 
 

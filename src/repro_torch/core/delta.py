@@ -7,10 +7,8 @@ leaving and entering the table — plus the equivalent :class:`ZSet` view
 ``update_rows`` is the sum of both, exactly the DBSP encoding from the
 gnitz spec referenced in SNIPPETS.md §1).
 
-The reference package's serving layer (its IVM maintainer,
-``repro/service/ivm.py``) consumes these to *patch* cached answers instead
-of evicting them; the port's serving layer is not ported yet, so here the
-module stands alone: because QUIP answers
+The serving layer's IVM maintainer (``service/ivm.py``) consumes these to
+*patch* cached answers instead of evicting them: because QUIP answers
 are strategy-independent multisets, ``Q(T + ΔT) = Q(T) + Q(ΔT)`` holds for
 the linear fragment (select/project over a join spine with the other build
 sides frozen), and the answer patch itself is plain Z-set addition over

@@ -17,7 +17,7 @@ Each extension reports the *full* merged :class:`ExecutionCounters` of its
 branches (imputations, impute_batches, impute_flushes, join_impl, ...), not
 just an imputation count.  The combination helpers (``union_answers``,
 ``minus_answers``, ``nested_outer_query``, ``merge_stats``) are public for
-the serving layer, which is not ported yet.
+the serving layer (``service/``).
 
 Every branch runs through :func:`execute_quip` on ``device`` with its
 defaults, so the executor, join and segment members follow the

@@ -39,7 +39,7 @@
 // kept.  So P is split into P_hi = bf16(P) and P_lo = bf16(P - P_hi) and
 // O += P_hi.V + P_lo.V: P is carried to ~16 bits at 1.5 times the tensor
 // work of the two products.
-// Not here yet (ROADMAP Queue 4): the ping-pong of the two consumers'
+// Not here yet (ROADMAP Queue 2, this kernel's entry): the ping-pong of the two consumers'
 // softmax against the other's products, and the overlap of one tile's
 // softmax with the next tile's Q.K^T inside a warpgroup.
 

@@ -15,14 +15,24 @@ Scales are configurable (default sizes keep CI fast; benchmarks scale up).
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 
 from repro_torch.core.relation import MaskedRelation
 from repro_torch.core.schema import ColumnSpec, Schema
 
-__all__ = ["wifi_dataset", "cdc_dataset", "smartcampus_dataset"]
+__all__ = ["wifi_dataset", "cdc_dataset", "smartcampus_dataset", "mask_values"]
+
+
+def mask_values(rng, values: np.ndarray, rate: float
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """``values`` with a ``rate`` share of entries drawn from ``rng`` set
+    to 0, and the mask of those entries."""
+    m = rng.random(len(values)) < rate
+    out = values.copy()
+    out[m] = 0
+    return out, m
 
 
 def _relation(name: str, cols: Dict[str, np.ndarray],

@@ -2,11 +2,10 @@
 prompt is streamed token by token through ``decode_step`` to fill the KV
 caches, then ``gen`` tokens are decoded greedily.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
         --reduced --batch 4 --prompt-len 32 --gen 16 --device cpu
 
-The reference's default architecture (mamba2-370m) is an SSM, which the
-port does not run yet, so the default here is qwen2.5-3b.  Runs on the
+The default architecture is the reference's, mamba2-370m.  Runs on the
 card unless ``--device cpu`` is given.
 """
 
@@ -83,7 +82,7 @@ def serve_batch(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--arch", default="mamba2-370m")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -7,7 +7,7 @@ straggler monitoring, and metrics, on one device.
 
 Runs on the card unless ``--device cpu`` is given.  The reference runs its
 step under a host mesh with sharded parameters and activations; the port
-has no mesh yet (ROADMAP Queue 1 item 12: ``sharding/``), so the whole
+has no mesh yet (ROADMAP Queue 1: ``sharding/``), so the whole
 state lives on ``device``.
 """
 

@@ -13,7 +13,7 @@ would differentiate through it.  The decode path always runs ``_sdpa``,
 as in the reference.
 
 The reference's sharding ``constrain`` calls are no-ops without a device
-mesh and are left out.  MLA is not ported yet (ROADMAP Queue 1 item 12):
+mesh and are left out.  MLA is not ported yet (ROADMAP Queue 1, MLA):
 its entry points raise.
 """
 
@@ -36,7 +36,7 @@ __all__ = [
     "mla_decode", "mla_params",
 ]
 
-_MLA_TODO = ("MLA attention is not ported yet (ROADMAP Queue 1 item 12: "
+_MLA_TODO = ("MLA attention is not ported yet (ROADMAP Queue 1: "
              "the LM substrate's MLA)")
 
 

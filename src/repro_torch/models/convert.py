@@ -7,15 +7,19 @@ parameters: :func:`params_from_reference` takes the pytree of
 segment's leading ``repeats`` axis into one block per layer, in layer
 order, and copies every leaf into the port's :class:`~models.model.LM`;
 :func:`train_state_from_reference` carries a whole train state (the
-parameters and the AdamW moments) across the same way.
+parameters and the AdamW moments) across the same way, and
+:func:`load_reference_state` into a state that exists.  The other way,
+:func:`reference_tree` and :func:`reference_state_tree` stack the port's
+per-layer leaves back into the reference's trees (the checkpoint writer of
+``checkpoint/reference.py``).
 This module imports neither JAX nor the reference; the caller turns the
-leaves into numpy arrays (``np.asarray``).
+leaves into numpy arrays (``np.asarray``) or tensors.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Callable, Dict, List
 
 import numpy as np
 import torch
@@ -25,8 +29,9 @@ from repro_torch.kernels.ops import resolve_device
 from repro_torch.launch.steps import init_train_state
 from repro_torch.models.model import LM
 
-__all__ = ["config_from_reference", "params_from_reference",
-           "reference_leaves", "train_state_from_reference"]
+__all__ = ["config_from_reference", "load_reference_state",
+           "params_from_reference", "reference_leaves", "reference_state_tree",
+           "reference_tree", "train_state_from_reference"]
 
 
 def config_from_reference(ref_cfg: Any) -> ArchConfig:
@@ -40,6 +45,8 @@ def config_from_reference(ref_cfg: Any) -> ArchConfig:
 
 
 def _tensor(a: Any) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits
         return torch.from_numpy(
@@ -52,6 +59,8 @@ def _layer(tree: Any, r: int) -> Any:
     """Layer ``r`` of a stacked block pytree."""
     if isinstance(tree, dict):
         return {k: _layer(v, r) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree[r]
     return np.asarray(tree)[r]
 
 
@@ -112,23 +121,108 @@ def params_from_reference(ref_params: Dict[str, Any], cfg: Any,
     return model
 
 
-def train_state_from_reference(ref_state: Dict[str, Any], cfg: Any,
-                               device="cuda") -> Dict[str, Any]:
-    """The port's train state (``launch/steps.py::init_train_state``)
-    holding the reference's ``init_train_state`` tree (numpy leaves): the
-    parameters in the model, the AdamW moments ``m``/``v`` under the same
-    parameter names, the optimizer's ``count`` and the ``step``."""
-    if not isinstance(cfg, ArchConfig):
-        cfg = config_from_reference(cfg)
-    model = params_from_reference(ref_state["params"], cfg, device)
-    state = init_train_state(cfg, model)
+def _segment_layers(model: LM) -> List[List[List[int]]]:
+    """For each segment, for each position of its pattern, the layers
+    (indices into ``model.blocks``) its stacked leaves hold, by repeat."""
+    out, i = [], 0
+    for seg in model.segs:
+        width = len(seg.pattern)
+        out.append([[i + r * width + j for r in range(seg.repeats)]
+                    for j in range(width)])
+        i += seg.repeats * width
+    return out
+
+
+def _stack(leaves: List[torch.Tensor]) -> torch.Tensor:
+    return torch.stack([t.detach() for t in leaves])
+
+
+def reference_tree(named: Dict[str, Any], model: LM,
+                   stack: Callable[[List[Any]], Any] = _stack
+                   ) -> Dict[str, Any]:
+    """The inverse of :func:`reference_leaves`: ``named`` (leaves under
+    ``model``'s parameter names: its parameters, gradients or AdamW
+    moments) as a tree shaped like the reference's parameters, each
+    segment's per-layer leaves joined by ``stack`` (default
+    ``torch.stack``) on a leading ``repeats`` axis."""
+    out = {"embed": named["embed"], "final_norm": named["final_norm.scale"]}
+    if "lm_head" in named:
+        out["lm_head"] = named["lm_head"]
+    segments = []
+    for seg_layers in _segment_layers(model):
+        blocks = []
+        for layers in seg_layers:
+            first = f"blocks.{layers[0]}."
+            block: Dict[str, Any] = {}
+            for name in named:
+                if not name.startswith(first):
+                    continue
+                key = name[len(first):]
+                leaf = stack([named[f"blocks.{i}.{key}"] for i in layers])
+                part, rest = key.split(".", 1)
+                if rest == "scale":  # a norm: the reference's leaf itself
+                    block[part] = leaf
+                else:  # a mixer's or MLP's weight
+                    block.setdefault(part, {})[rest] = leaf
+            blocks.append(block)
+        segments.append({"blocks": blocks})
+    out["segments"] = segments
+    return out
+
+
+def _adamw_only(state: Dict[str, Any]) -> None:
+    if "m" not in state["opt"]:
+        raise NotImplementedError(
+            "only AdamW states are carried across: Adafactor's factored "
+            "statistics of a stacked (repeats, d) norm mix the layers, which "
+            "no per-layer state holds")
+
+
+def reference_state_tree(state: Dict[str, Any],
+                         stack: Callable[[List[Any]], Any] = _stack
+                         ) -> Dict[str, Any]:
+    """The port's train state (``launch/steps.py``) as the reference's
+    ``init_train_state`` nests it: ``{"opt": {"count", "m", "v"},
+    "params", "step"}``, the trees by :func:`reference_tree`."""
+    _adamw_only(state)
+    model, opt = state["params"], state["opt"]
+    named = dict(model.named_parameters())
+    return {"opt": {"count": opt["count"],
+                    "m": reference_tree(opt["m"], model, stack),
+                    "v": reference_tree(opt["v"], model, stack)},
+            "params": reference_tree(named, model, stack),
+            "step": state["step"]}
+
+
+def load_reference_state(state: Dict[str, Any], ref_state: Dict[str, Any]
+                         ) -> Dict[str, Any]:
+    """Copy the reference's train state (numpy or tensor leaves) into the
+    port's ``state`` in place: the parameters, the AdamW moments ``m``/``v``
+    under the same parameter names, the optimizer's ``count`` and the
+    ``step``.  Returns ``state``."""
+    _adamw_only(state)
+    model = state["params"]
+    params = dict(model.named_parameters())
+    for name, leaf in reference_leaves(ref_state["params"], model).items():
+        _copy(params[name], leaf, name)
     ref_opt = ref_state["opt"]
-    if "m" not in ref_opt or "m" not in state["opt"]:
+    if "m" not in ref_opt:
         raise NotImplementedError("only AdamW states are carried across")
     for key in ("m", "v"):
         for name, leaf in reference_leaves(ref_opt[key], model).items():
             _copy(state["opt"][key][name], leaf, f"opt.{key}.{name}")
     with torch.no_grad():
-        state["opt"]["count"].fill_(int(np.asarray(ref_opt["count"])))
-        state["step"].fill_(int(np.asarray(ref_state["step"])))
+        state["opt"]["count"].fill_(int(ref_opt["count"]))
+        state["step"].fill_(int(ref_state["step"]))
     return state
+
+
+def train_state_from_reference(ref_state: Dict[str, Any], cfg: Any,
+                               device="cuda") -> Dict[str, Any]:
+    """The port's train state (``launch/steps.py::init_train_state``)
+    holding the reference's ``init_train_state`` tree (numpy leaves), by
+    :func:`load_reference_state`."""
+    if not isinstance(cfg, ArchConfig):
+        cfg = config_from_reference(cfg)
+    model = LM(cfg, device=resolve_device(device))
+    return load_reference_state(init_train_state(cfg, model), ref_state)

@@ -155,16 +155,17 @@ def prefill(model: LM, cfg: ArchConfig, batch: Dict[str, Any],
 # decode
 # --------------------------------------------------------------------------- #
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
-                device="cuda") -> List[torch.Tensor]:
-    """Zero K/V caches, one (2, B, max_len, KV, D) tensor per layer."""
+                device="cuda") -> List[Any]:
+    """Zero caches, one per layer: a (2, B, max_len, KV, D) K/V tensor
+    for an attention layer, ``{state, conv}`` for an SSM layer."""
     return init_segment_caches(cfg, build_segments(cfg), batch, max_len,
                                torch_dtype(cfg.dtype),
                                device=resolve_device(device))
 
 
-def decode_step(model: LM, caches: List[torch.Tensor], cfg: ArchConfig,
+def decode_step(model: LM, caches: List[Any], cfg: ArchConfig,
                 tokens: torch.Tensor, pos: torch.Tensor
-                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+                ) -> Tuple[torch.Tensor, List[Any]]:
     """tokens: (B, 1); pos: (B,) current lengths → (logits (B, vocab)
     float32, caches).  The caches are updated in place."""
     x = F.embedding(tokens.long(), model.embed)

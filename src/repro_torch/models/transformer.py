@@ -6,8 +6,9 @@ The reference stacks each segment's blocks into arrays with a leading
 segments (:class:`SegmentSpec`) still describe which kind each layer is,
 so local/global patterns follow the reference layer for layer.
 
-Dense attention blocks are ported.  SSM, MoE and weight-shared attention
-blocks raise ``NotImplementedError`` (ROADMAP Queue 1 item 12).  ``remat``
+Dense attention and SSM (mamba2) blocks are ported.  MoE, MLA and
+weight-shared attention blocks raise ``NotImplementedError`` (ROADMAP
+Queue 1).  ``remat``
 checkpoints each period of a segment, as the reference's ``jax.checkpoint``
 of its scan body does (``forward_segments``).
 """
@@ -15,7 +16,7 @@ of its scan body does (``forward_segments``).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import Any, List, Tuple
 
 import torch
 from torch import nn
@@ -26,13 +27,14 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba
 from repro_torch.models.layers import MLP, RMSNorm
 
 __all__ = ["Block", "BlockSpec", "SegmentSpec", "build_segments",
            "decode_segments", "forward_segments", "init_segment_caches",
            "layer_specs"]
 
-_TODO = "ROADMAP Queue 1 item 12: the LM substrate's {} blocks"
+_TODO = "ROADMAP Queue 1: the LM substrate's {} blocks are not ported yet"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,8 +91,6 @@ def layer_specs(segs: List[SegmentSpec]) -> List[BlockSpec]:
 
 
 def _check_ported(cfg: ArchConfig, spec: BlockSpec) -> None:
-    if spec.kind == "ssm":
-        raise NotImplementedError(_TODO.format("SSM/hybrid"))
     if spec.moe or cfg.is_moe:
         raise NotImplementedError(_TODO.format("MoE"))
     if cfg.shared_attn:
@@ -100,8 +100,8 @@ def _check_ported(cfg: ArchConfig, spec: BlockSpec) -> None:
 
 
 class Block(nn.Module):
-    """One dense block: ``ln1``, the GQA ``mixer``, and with an MLP
-    ``ln2`` and ``mlp``."""
+    """One block: ``ln1``, the ``mixer`` (GQA, or the SSD block for
+    ``kind == "ssm"``), and with an MLP ``ln2`` and ``mlp``."""
 
     def __init__(self, cfg: ArchConfig, spec: BlockSpec, *, device=None,
                  dtype=torch.float32):
@@ -109,7 +109,10 @@ class Block(nn.Module):
         _check_ported(cfg, spec)
         d = cfg.d_model
         self.ln1 = RMSNorm(d, cfg.norm_eps, device=device, dtype=dtype)
-        self.mixer = attn.GQA(cfg, device=device, dtype=dtype)
+        if spec.kind == "ssm":
+            self.mixer = mamba.SSM(cfg, device=device, dtype=dtype)
+        else:
+            self.mixer = attn.GQA(cfg, device=device, dtype=dtype)
         self.ln2 = self.mlp = None
         if spec.mlp:
             self.ln2 = RMSNorm(d, cfg.norm_eps, device=device, dtype=dtype)
@@ -128,8 +131,11 @@ class Block(nn.Module):
 def _apply_block(p: Block, cfg: ArchConfig, spec: BlockSpec, x, positions,
                  causal: bool) -> torch.Tensor:
     h = p.ln1(x)
-    x = x + attn.gqa_apply(p.mixer, cfg, h, positions,
-                           local=spec.kind == "local", causal=causal)
+    if spec.kind == "ssm":
+        x = x + mamba.ssm_apply(p.mixer, cfg, h)
+    else:
+        x = x + attn.gqa_apply(p.mixer, cfg, h, positions,
+                               local=spec.kind == "local", causal=causal)
     if spec.mlp:
         x = x + p.mlp(p.ln2(x))
     return x
@@ -188,25 +194,33 @@ def forward_segments(blocks: nn.ModuleList, cfg: ArchConfig,
 # --------------------------------------------------------------------------- #
 def init_segment_caches(cfg: ArchConfig, segs: List[SegmentSpec],
                         batch: int, max_len: int, dtype,
-                        device=None) -> List[torch.Tensor]:
-    """One zero (2, B, T, KV, D) K/V cache per layer, in layer order."""
+                        device=None) -> List[Any]:
+    """One zero cache per layer, in layer order: a (2, B, T, KV, D) K/V
+    tensor for an attention layer, an SSM layer's ``{state, conv}``."""
     caches = []
     for spec in layer_specs(segs):
         _check_ported(cfg, spec)
-        caches.append(attn.init_kv_cache(cfg, batch, max_len, dtype,
-                                         device=device))
+        if spec.kind == "ssm":
+            caches.append(mamba.init_ssm_cache(cfg, batch, dtype,
+                                               device=device))
+        else:
+            caches.append(attn.init_kv_cache(cfg, batch, max_len, dtype,
+                                             device=device))
     return caches
 
 
-def decode_segments(blocks: nn.ModuleList, caches: List[torch.Tensor],
+def decode_segments(blocks: nn.ModuleList, caches: List[Any],
                     cfg: ArchConfig, segs: List[SegmentSpec], x, pos
-                    ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+                    ) -> Tuple[torch.Tensor, List[Any]]:
     """x: (B,1,d); pos: (B,) current length.  Returns (x, caches); the
     caches are updated in place."""
     for p, spec, cache in zip(blocks, layer_specs(segs), caches):
         h = p.ln1(x)
-        mixed, _ = attn.gqa_decode(p.mixer, cfg, h, cache, pos,
-                                   local=spec.kind == "local")
+        if spec.kind == "ssm":
+            mixed, _ = mamba.ssm_decode(p.mixer, cfg, h, cache)
+        else:
+            mixed, _ = attn.gqa_decode(p.mixer, cfg, h, cache, pos,
+                                       local=spec.kind == "local")
         x = x + mixed
         if spec.mlp:
             x = x + p.mlp(p.ln2(x))

@@ -233,3 +233,141 @@ def test_tree_leaves_order():
         [1.0, 2.0, 0.0]
     with pytest.raises(TypeError):
         tree_leaves({"a": 1.0})
+
+
+# --------------------------------------------------------------------------- #
+# train states across the packages: the reference's layout
+# --------------------------------------------------------------------------- #
+CROSS = [("qwen2.5-3b", "float32"), ("qwen2.5-3b", "bfloat16"),
+         ("mamba2-370m", "float32"), ("mamba2-370m", "bfloat16")]
+
+
+def _reference_train_state(arch: str, dtype: str, seed: int):
+    """The reference's reduced config and its ``init_train_state`` with
+    numpy leaves: its own parameters, the AdamW moments drawn (so every
+    leaf is distinct) and the counters at 3."""
+    import jax
+
+    from repro.configs.base import get_arch as jax_get_arch
+    from repro.launch import steps as RS
+    from repro.models import init_params as jax_init_params
+
+    cfg = dataclasses.replace(jax_get_arch(arch).reduced(), dtype=dtype)
+    state = jax.tree.map(np.asarray, RS.init_train_state(
+        cfg, jax_init_params(cfg, jax.random.PRNGKey(seed))))
+    rng = np.random.default_rng(seed)
+    for key in ("m", "v"):
+        state["opt"][key] = jax.tree.map(
+            lambda a: rng.normal(0, 1, a.shape).astype(np.float32),
+            state["opt"][key])
+    state["opt"]["count"] = np.int32(3)
+    state["step"] = np.int32(3)
+    return cfg, state
+
+
+def _bits(a) -> np.ndarray:
+    """A leaf's bytes as integers (bf16 leaves load as 2-byte voids)."""
+    a = np.asarray(a)
+    if a.dtype.itemsize == 2 and a.dtype.kind in "Vf":
+        return a.view(np.uint16)
+    return a.view(np.dtype(f"u{a.dtype.itemsize}")) if a.ndim else a
+
+
+def _port_state_equals(state, ref_state, model) -> None:
+    """Every leaf of the port's ``state`` bit for bit the reference's."""
+    from repro_torch.models.convert import reference_leaves
+
+    named = dict(model.named_parameters())
+    trees = ((named, ref_state["params"]),
+             (state["opt"]["m"], ref_state["opt"]["m"]),
+             (state["opt"]["v"], ref_state["opt"]["v"]))
+    for got, want in trees:
+        want = reference_leaves(want, model)
+        assert sorted(got) == sorted(want)
+        for name, leaf in want.items():
+            t = got[name].detach()
+            if t.dtype == torch.bfloat16:
+                t = t.view(torch.int16).numpy().view(np.uint16)
+            else:
+                t = t.numpy()
+            np.testing.assert_array_equal(_bits(t), _bits(leaf),
+                                          err_msg=name)
+    assert int(state["step"]) == int(ref_state["step"])
+    assert int(state["opt"]["count"]) == int(ref_state["opt"]["count"])
+
+
+@pytest.mark.parametrize("arch,dtype", CROSS)
+def test_reference_train_state_restores_in_the_port(tmp_path, arch, dtype):
+    """A train state written by the reference's ``save_checkpoint`` (from
+    its ``init_train_state``) restores into a fresh port train state, leaf
+    for leaf; the port's own layout of that state holds other leaves."""
+    from repro_torch.checkpoint import restore_reference_checkpoint
+    from repro_torch.models.convert import config_from_reference
+
+    cfg, ref_state = _reference_train_state(arch, dtype, seed=1)
+    R.save_checkpoint(str(tmp_path), 3, ref_state)
+    port_cfg = config_from_reference(cfg)
+    state = init_train_state(port_cfg, init_params(
+        port_cfg, torch.Generator().manual_seed(7), device="cpu"))
+    with pytest.raises(ValueError, match="leaves"):
+        restore_checkpoint(str(tmp_path), state)
+    out, step = restore_reference_checkpoint(str(tmp_path), state)
+    assert out is state and step == 3
+    _port_state_equals(state, ref_state, state["params"])
+
+
+@pytest.mark.parametrize("arch,dtype", CROSS)
+def test_port_train_state_restores_in_the_reference(tmp_path, arch, dtype):
+    """The port's reference-layout write restores in the reference's
+    ``restore_checkpoint`` against its own ``init_train_state``, leaf for
+    leaf, with the reference's digests; the port reads it back too."""
+    import jax
+
+    from repro_torch.checkpoint import (
+        restore_reference_checkpoint,
+        save_reference_checkpoint,
+    )
+    from repro_torch.models.convert import train_state_from_reference
+
+    cfg, ref_state = _reference_train_state(arch, dtype, seed=2)
+    state = train_state_from_reference(ref_state, cfg, device="cpu")
+    step_dir = save_reference_checkpoint(str(tmp_path / "port"), 3, state)
+    like = jax.tree.map(np.zeros_like, ref_state)
+    out, step = R.restore_checkpoint(str(tmp_path / "port"), like)
+    assert step == 3
+    want_leaves = jax.tree_util.tree_leaves(ref_state)
+    got_leaves = jax.tree_util.tree_leaves(out)
+    assert len(got_leaves) == len(want_leaves)
+    for got, want in zip(got_leaves, want_leaves):
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+    ref_dir = R.save_checkpoint(str(tmp_path / "ref"), 3, ref_state)
+    assert _manifest(step_dir)["digests"] == _manifest(ref_dir)["digests"]
+    fresh = train_state_from_reference(
+        _reference_train_state(arch, dtype, seed=5)[1], cfg, device="cpu")
+    restore_reference_checkpoint(str(tmp_path / "port"), fresh)
+    _port_state_equals(fresh, ref_state, fresh["params"])
+
+
+def test_reference_layout_leaf_counts():
+    """The reduced qwen2.5-3b's train state: 44 leaves in the reference's
+    layout (blocks stacked), 80 in the port's own (one per layer)."""
+    from repro_torch.models.convert import reference_state_tree
+
+    cfg = get_arch("qwen2.5-3b").reduced()
+    state = init_train_state(cfg, init_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    assert len(tree_leaves(reference_state_tree(state))) == 44
+    assert len(tree_leaves(state)) == 80
+
+
+def test_reference_layout_refuses_adafactor(tmp_path):
+    from repro_torch.checkpoint import save_reference_checkpoint
+    from repro_torch.optim import adafactor_init
+
+    cfg = get_arch("qwen2.5-3b").reduced()
+    state = init_train_state(cfg, init_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    state["opt"] = adafactor_init(dict(state["params"].named_parameters()))
+    with pytest.raises(NotImplementedError, match="Adafactor"):
+        save_reference_checkpoint(str(tmp_path), 1, state)

@@ -16,6 +16,7 @@ from port_twin import frozen_clocks, to_port, to_port_tables  # noqa: F401
 from repro.core.bloom import BloomFilter as JaxBloom
 from repro.data.queries import workload as jax_workload
 from repro.data.synthetic import cdc_dataset as jax_cdc
+from repro.data.synthetic import mask_values as jax_mask_values
 from repro.data.synthetic import wifi_dataset as jax_wifi
 from repro.imputers.knn import KnnImputer as JaxKnn
 from repro_torch.core import executor
@@ -24,7 +25,8 @@ from repro_torch.core.bloom import BloomFilter
 from repro_torch.core.env import ENV_REGISTRY, env_int
 from repro_torch.core.triggers import multi_match, resolve_join_impl
 from repro_torch.data.queries import workload
-from repro_torch.data.synthetic import cdc_dataset, wifi_dataset
+from repro_torch.data import synthetic
+from repro_torch.data.synthetic import cdc_dataset, mask_values, wifi_dataset
 from repro_torch.imputers import ImputationEngine, KnnImputer, MeanImputer
 from repro_torch.imputers.base import _resolve_batching
 from repro_torch.kernels import ops as kops
@@ -76,6 +78,25 @@ def test_generators_are_bit_identical(case):
         assert j.keys() == t.keys()
         for name in j:
             _assert_same_relation(j[name], t[name])
+
+
+@pytest.mark.parametrize("dtype,rate", [(np.int64, 0.3), (np.float64, 0.05),
+                                        (np.float32, 1.0), (np.int32, 0.0)])
+def test_mask_values_twin(dtype, rate):
+    """The same generator state gives the same values, mask and next draw;
+    the input is left as it was."""
+    values = np.random.default_rng(1).normal(50, 20, 500).astype(dtype)
+    kept = values.copy()
+    rj, rt = np.random.default_rng(9), np.random.default_rng(9)
+    (vj, mj), (vt, mt) = jax_mask_values(rj, values, rate), \
+        mask_values(rt, values, rate)
+    assert vt.dtype == vj.dtype == dtype and mt.dtype == mj.dtype == bool
+    np.testing.assert_array_equal(vt, vj)
+    np.testing.assert_array_equal(mt, mj)
+    np.testing.assert_array_equal(values, kept)
+    assert (vt[mt] == 0).all() and int(mt.sum()) == int(mj.sum())
+    assert rj.random() == rt.random()
+    assert "mask_values" in synthetic.__all__
 
 
 def _query_key(q):

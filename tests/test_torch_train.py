@@ -36,6 +36,7 @@ from repro_torch.launch.train import train_loop
 from repro_torch.models import decode_step, init_caches, init_params, prefill
 from repro_torch.models.convert import (
     config_from_reference,
+    load_reference_state,
     params_from_reference,
     reference_leaves,
     train_state_from_reference,
@@ -44,8 +45,8 @@ from repro_torch.models.model import uses_embeds
 
 DENSE = ["qwen2.5-3b", "qwen3-8b", "gemma-7b", "gemma2-27b",
          "hubert-xlarge", "pixtral-12b"]
-UNPORTED = ["mamba2-370m", "deepseek-v3-671b", "moonshot-v1-16b-a3b",
-            "zamba2-1.2b"]
+SSM = ["mamba2-370m"]
+UNPORTED = ["deepseek-v3-671b", "moonshot-v1-16b-a3b", "zamba2-1.2b"]
 HPARAMS = dict(peak_lr=1e-4, warmup=1, total_steps=10)
 
 
@@ -249,7 +250,7 @@ def test_abstract_train_state_matches_eval_shape(arch):
 
 
 def test_optimizer_for_follows_the_reference():
-    for arch in DENSE + UNPORTED:
+    for arch in DENSE + SSM + UNPORTED:
         assert S.optimizer_for(get_arch(arch)) == \
             RS.optimizer_for(jax_get_arch(arch))
     assert S.optimizer_for(get_arch("deepseek-v3-671b")) == "adafactor"
@@ -280,6 +281,61 @@ def test_unported_blocks_raise(arch):
         S.abstract_train_state(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_loop(cfg, steps=1, batch=2, seq=8, device="cpu")
+
+
+# --------------------------------------------------------------------------- #
+# the trainer's schedule: 30 steps at warmup 20, peak 3e-4
+# --------------------------------------------------------------------------- #
+SCHEDULE = dict(warmup=20, total_steps=30)  # launch/train.py's, at 30 steps
+
+
+def schedule_runs(steps: int = 30):
+    """The reduced qwen2.5-3b (float32) trained ``steps`` steps at the
+    trainer's schedule on the reference's QUIP stream (batch 8 x 128) from
+    the reference's initial state, in both packages' ``build_train_step``:
+    the reference (jitted, no mesh); the port with the reference's state
+    carried in before each step ("synced"); the port on its own ("free").
+    Returns each run's per-step (loss, pre-clip gnorm) lists."""
+    from repro.launch.train import quip_batch_stream
+
+    cfg = jax_get_arch("qwen2.5-3b").reduced()
+    stream = quip_batch_stream(cfg, 8, 128)
+    batches = [next(stream) for _ in range(steps)]
+    ref_state = RS.init_train_state(cfg, jax_init_params(
+        cfg, jax.random.PRNGKey(0)))
+    ref_step = jax.jit(RS.build_train_step(cfg, **SCHEDULE))
+    port_step = S.build_train_step(config_from_reference(cfg), **SCHEDULE)
+    synced = train_state_from_reference(_numpy(ref_state), cfg, device="cpu")
+    free = train_state_from_reference(_numpy(ref_state), cfg, device="cpu")
+    runs = {"reference": [], "synced": [], "free": []}
+    for batch in batches:
+        load_reference_state(synced, _numpy(ref_state))
+        ref_state, m = ref_step(ref_state, _to_jax(batch))
+        runs["reference"].append((float(m["loss"]), float(m["gnorm"])))
+        for name, state in (("synced", synced), ("free", free)):
+            _, m = port_step(state, _to_port(batch))
+            runs[name].append((float(m["loss"]), float(m["gnorm"])))
+    return runs
+
+
+def test_train_schedule_twin():
+    """30 steps at the trainer's schedule (warmup 20, peak lr 3e-4): each
+    step's loss within rtol 1e-5 and pre-clip gnorm within rtol 1e-4 of the
+    reference's, from the reference's state of that step; the port's own
+    run stays within rtol 1e-4 of the reference's at every step.  The
+    loss after the warmup rises from step 20 to step 30 in both packages
+    alike: it is the reference's own behaviour (the stream's batch 20 is
+    an easy one)."""
+    runs = schedule_runs()
+    ref = np.array(runs["reference"])
+    for name, rtol in (("synced", (1e-5, 1e-4)), ("free", (1e-4, 1e-4))):
+        got = np.array(runs[name])
+        np.testing.assert_allclose(got[:, 0], ref[:, 0], rtol=rtol[0],
+                                   err_msg=f"{name} loss")
+        np.testing.assert_allclose(got[:, 1], ref[:, 1], rtol=rtol[1],
+                                   err_msg=f"{name} gnorm")
+    assert np.isfinite(ref).all()
+    assert ref[29, 0] > ref[19, 0]
 
 
 def test_serve_steps_equal_the_model_calls():
@@ -338,3 +394,28 @@ def test_train_loop_needs_a_card_by_default():
         pytest.skip("a card is present: the default device runs")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_loop(get_arch("qwen2.5-3b").reduced(), steps=1, batch=2, seq=8)
+
+
+def initial_losses(steps: int = 30):
+    """The reference's loss on each of the first ``steps`` batches of
+    ``schedule_runs``' stream, all at the initial parameters."""
+    from repro.launch.train import quip_batch_stream
+
+    cfg = jax_get_arch("qwen2.5-3b").reduced()
+    stream = quip_batch_stream(cfg, 8, 128)
+    params = jax_init_params(cfg, jax.random.PRNGKey(0))
+    loss = jax.jit(lambda p, b: jax_loss_fn(p, cfg, b))
+    return [float(loss(params, _to_jax(next(stream)))) for _ in range(steps)]
+
+
+if __name__ == "__main__":
+    # the two 30-step loss curves of test_train_schedule_twin, and each
+    # batch's loss at the initial parameters:
+    # PYTHONPATH=src python tests/test_torch_train.py
+    runs = schedule_runs()
+    print("step  reference loss  port loss (free)  reference gnorm  "
+          "batch's loss at step 0")
+    for i, (r, f, b) in enumerate(zip(runs["reference"], runs["free"],
+                                      initial_losses()), 1):
+        print(f"{i:4d}  {r[0]:14.6f}  {f[0]:16.6f}  {r[1]:15.6f}  "
+              f"{b:22.6f}")
