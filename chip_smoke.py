@@ -26,9 +26,11 @@ every layer.  In float32 the kernel path's prefill (batch 2 x 4096 tokens)
 must equal the plain path's (``QUIPT_ATTN_IMPL=ref``) within 1e-3 of the
 largest logit with the same argmax in every row, and a 128-token prompt
 streamed through ``decode_step`` must equal its prefill the same way; in
-bfloat16 (as configured) the two paths' prefills must agree to a cosine
-of 0.99 per row, and ``serve_batch`` serves 4 prompts of 128 tokens with
-32 greedy tokens each.
+bfloat16 (as configured) the two paths' prefills must agree to a cosine of
+0.99 per row, every attention call of the kernel path must match the plain
+version on its own inputs, as must the residual stream just after the
+first attention layer (``bf16_gate``), and ``serve_batch`` serves 4
+prompts of 128 tokens with 32 greedy tokens each.
 
 Slice 5 redesigns two kernels in place: the segment reduction (place
 step spread over chunks of rows, a thread, warp or block per segment by
@@ -114,6 +116,33 @@ must equal the reference's; in bfloat16 ``serve_batch`` serves 4 prompts
 of 128 tokens with 32 greedy tokens each (timed), and one decode step is
 profiled.  The SSM path runs no hand-written kernel (the reference's scan
 is einsums and ``lax.scan``, no Pallas).
+
+Slice 12 adds four LM phases and the attention kernel's times at their
+calls, after the kernel-time phase has used and freed the main path's
+recorded calls.  zamba2-1.2b (38 layers, d_model 2048, 64 SSD heads, one
+attention + MLP block whose weights six layers share, random weights from
+seed 0) in float32: its parameter counts against the reference's, a 1 x
+512 prefill on the card with ``attn_impl="cuda"`` (the CUDA-core kernel at
+D 64 in its 6 attention layers) against the CPU's plain path, and decode
+over the 512 tokens against the prefill; in bfloat16 the kernel and plain
+prefills at 2 x 4096, timed and profiled, ``serve_batch`` and a profiled
+decode step.  The bfloat16 prefills' logits are compared but not gated for
+the SSM and MoE archs (one rounding of difference grows through bfloat16
+SSM layers to a cosine near zamba2's own distance from float32, 0.96; MoE
+routing flips cascade): their gate is the attention calls on the kernel
+path's own inputs, each within one rounding step of the plain version, a
+planted fault (one head 2% off) caught in every call, and the residual
+stream just after the first attention layer within 8e-3 of the plain
+path's.  moonshot-v1-16b-a3b (48 layers, the first dense, 64 experts top-6
++ 2 shared, 28,051,048,448 parameters, 56.1 GB in bfloat16, drawn on the
+card once less than 1 GB is held there) likewise in bfloat16, the two
+prefills' routing reported layer by layer.  moonshot in float32 at 4
+layers (1 dense, 3 MoE): a 1 x 512 prefill and 32 decode steps on the card
+against the CPU's, logits and routing (a token routes alike unless its
+6th-to-7th router margin is within max(1e-5, twice the runs' probability
+difference) of a tie).  Both archs' attention is multi-head: (2, 4096, 32,
+32, 64) and (2, 4096, 16, 16, 128) are checked against the plain version
+in both dtypes and timed in bfloat16.
 
 Each configuration runs once through the kernels and once through the plain
 versions, whose answers and imputation counts must agree; slice 2's wifi
@@ -1262,6 +1291,9 @@ ATTN_MASKS = ((True, None), (False, None), (True, 24))
 # products, since rounding P itself to bf16 would add a second rounding
 # that this limit does not allow where few keys are kept.
 ATTN_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (8e-3, 1e-3)}
+# slice 12's prefill calls: zamba2-1.2b (32 heads, 32 KV heads, D 64) and
+# moonshot-v1-16b-a3b (16 and 16, D 128), both multi-head (group size 1)
+MHA_CALLS = ((LM_BATCH, LM_SEQ, 32, 32, 64), (LM_BATCH, LM_SEQ, 16, 16, 128))
 MATMUL_NAMES = ("gemm", "cutlass", "xmma", "nvjet", "cublas", "wgmma")
 
 
@@ -1298,8 +1330,9 @@ def check_attention(dev, fa, kref) -> dict:
     in float32 and bfloat16 (the CUDA-core kernel: head widths 8-32), on
     the same grid at the tensor-core kernel's head widths 64, 128 and 256
     in bfloat16, at the slice's call in bfloat16 and float32 (64 key tiles,
-    no window) and at a padded, windowed call in both; returns the largest
-    |difference| by dtype."""
+    no window), at a padded, windowed call in both, and at zamba2's and
+    moonshot's multi-head calls (``MHA_CALLS``) in both; returns the
+    largest |difference| by dtype."""
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for shape in ATTN_GRID:
         for causal, window in ATTN_MASKS:
@@ -1329,7 +1362,9 @@ def check_attention(dev, fa, kref) -> dict:
             ((LM_BATCH, LM_SEQ, 16, 2, 128), torch.bfloat16, None),
             ((LM_BATCH, LM_SEQ, 16, 2, 128), torch.float32, None),
             ((1, 1000, 16, 2, 128), torch.float32, 256),
-            ((1, 1000, 16, 2, 128), torch.bfloat16, 256)):
+            ((1, 1000, 16, 2, 128), torch.bfloat16, 256),
+            *((shape, dtype, None) for shape in MHA_CALLS
+              for dtype in (torch.bfloat16, torch.float32))):
         q, k, v = attention_inputs(dev, *shape, dtype, 7)
         e = attention_err(fa, kref, q, k, v, True, window,
                           f"{shape} {dtype} window={window}")
@@ -1374,34 +1409,15 @@ def time_attention(dev, fa, kref, build):
     """The slice's call, (2, 4096, 16, 2, 128) causal: in bf16 the
     tensor-core kernel (the route), the CUDA-core kernel on the same inputs,
     the plain version and ``scaled_dot_product_attention`` (timed only); in
-    float32 the CUDA-core kernel (its route) likewise.  The bound:
-    4·B·H·D·(kept pairs) operations at the dtype's peak (bf16 tensor cores,
-    float32 CUDA cores), or q/k/v/o once over the memory."""
-    import torch.nn.functional as F
-
-    b, s, h, kv, d = LM_BATCH, LM_SEQ, 16, 2, 128
-    ops = 4 * b * h * d * kept_pairs(s, True, None)
+    float32 the CUDA-core kernel (its route) likewise, each beside its
+    bound (:func:`attention_times`)."""
     out = {}
-    for dtype, peak in ((torch.bfloat16, BF16_TENSOR_OPS_PER_S),
-                        (torch.float32, FP32_OPS_PER_S)):
-        q, k, v = attention_inputs(dev, b, s, h, kv, d, dtype, 5)
-        err = attention_err(fa, kref, q, k, v, True, None,
-                            f"the slice's call in {dtype}")
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, t = attention_times(dev, fa, kref,
+                                     (LM_BATCH, LM_SEQ, 16, 2, 128), dtype)
+        b, s, h, kv, d = q.shape[:3] + k.shape[2:]
+        ops = 4 * b * h * d * kept_pairs(s, True, None)
         name = "bf16" if dtype == torch.bfloat16 else "f32"
-        t = {
-            "ms": cuda_ms(lambda: fa.flash_attention(q, k, v), reps=20),
-            "plain_ms": cuda_ms(lambda: kref.attention_ref(q, k, v), reps=5),
-            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), reps=20),
-            "err": err, "shape": f"({b}, {s}, {h}, {kv}, {d}) {name} causal",
-            "route": fa.route(dtype, d),
-        }
-        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, ops, peak)
-        print(f"   flash_attention at {t['shape']} ({t['route']} kernel): "
-              f"{ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; "
-              f"{ops / t['ms'] / 1e9:.1f} TFLOP/s", flush=True)
         if dtype == torch.bfloat16:
             # the tensor-core kernel's executed work: 128 x 128 tiles, P.V
             # twice (P_hi and P_lo)
@@ -1422,9 +1438,43 @@ def time_attention(dev, fa, kref, build):
                   f"({ops / t['cuda_core_ms'] / 1e9:.1f} TFLOP/s), max "
                   f"|diff| {float((cc - want).abs().max()):.3g}", flush=True)
         out[name] = t
-        del q, k, v, qt, kt, vt
+        del q, k, v
         torch.cuda.empty_cache()
     return out
+
+
+def attention_times(dev, fa, kref, shape, dtype):
+    """One causal call ``shape`` = (B, S, H, KV, D) in ``dtype``: held
+    against the plain version, then the kernel (its route), the plain
+    version and ``scaled_dot_product_attention`` (timed only) timed.  The
+    bound: 4·B·H·D·(kept pairs) operations at the dtype's peak (bf16
+    tensor cores, float32 CUDA cores), or q/k/v/o once over the memory.
+    Returns (q, k, v, times)."""
+    import torch.nn.functional as F
+
+    b, s, h, kv, d = shape
+    peak = BF16_TENSOR_OPS_PER_S if dtype == torch.bfloat16 \
+        else FP32_OPS_PER_S
+    ops = 4 * b * h * d * kept_pairs(s, True, None)
+    q, k, v = attention_inputs(dev, b, s, h, kv, d, dtype, 5)
+    name = "bf16" if dtype == torch.bfloat16 else "f32"
+    err = attention_err(fa, kref, q, k, v, True, None,
+                        f"{shape} {name} causal")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    t = {
+        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v), reps=20),
+        "plain_ms": cuda_ms(lambda: kref.attention_ref(q, k, v), reps=5),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), reps=20),
+        "err": err, "shape": f"{shape} {name} causal",
+        "route": fa.route(dtype, d),
+    }
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    t["bound_ms"], t["bound_by"] = bound_ms(nbytes, ops, peak)
+    print(f"   flash_attention at {t['shape']} ({t['route']} kernel): "
+          f"{ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; "
+          f"{ops / t['ms'] / 1e9:.1f} TFLOP/s", flush=True)
+    return q, k, v, t
 
 
 def close_logits(got, want, what: str) -> float:
@@ -1442,42 +1492,55 @@ def close_logits(got, want, what: str) -> float:
     return diff
 
 
-def lm_model(lm, dtype: str, seed: int, dev):
-    """qwen2.5-3b at full width and depth on the kernel path, random
-    weights from ``seed``, and a (2, 4096) prompt."""
-    cfg = dataclasses.replace(lm.get_arch(LM_ARCH), dtype=dtype,
+def lm_model(lm, dtype: str, seed: int, dev, arch: str = LM_ARCH):
+    """``arch`` (qwen2.5-3b) at full width and depth on the kernel path,
+    random weights from ``seed`` drawn on the card, and a (2, 4096)
+    prompt."""
+    cfg = dataclasses.replace(lm.get_arch(arch), dtype=dtype,
                               attn_impl="cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
     model = lm.init_params(cfg, g, dev)
+    torch.cuda.synchronize()
     toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ), generator=g,
                          device=dev)
-    print(f"   {LM_ARCH} {dtype}: {cfg.n_layers} layers, d_model "
+    print(f"   {arch} {dtype}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.num_params():,} parameters, "
-          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card",
-          flush=True)
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
+          f"drawn in {time.perf_counter() - t0:.2f}s", flush=True)
     return cfg, model, {"tokens": toks}
 
 
-def prefill_both(lm, fa, model, cfg, batch):
+def attention_layers(cfg) -> int:
+    """The layers that run attention (the kernel once each a prefill)."""
+    return sum(cfg.layer_kind(i) != "ssm" for i in range(cfg.n_layers))
+
+
+def prefill_both(lm, fa, model, cfg, batch, watch=None):
     """Prefill on the kernel path with the launch counters set to 0 just
     before and read just after, then on the plain path, which must launch
-    nothing; returns (kernel logits, plain logits, launches).  Every layer
-    launches the kernel of the dtype's route."""
+    nothing; returns (kernel logits, plain logits, launches).  Every
+    attention layer launches the kernel of the dtype's route.  ``watch``
+    (a :class:`PrefillWatch`) records each run as "kernel" and "plain"."""
+    run = watch.run if watch is not None \
+        else (lambda name: contextlib.nullcontext())
     fa.launches = 0
     fa.route_launches = dict.fromkeys(fa.ROUTES, 0)
-    kern = lm.prefill(model, cfg, batch)
-    torch.cuda.synchronize()
+    with run("kernel"):
+        kern = lm.prefill(model, cfg, batch)
+        torch.cuda.synchronize()
     launches = fa.launches
+    want = attention_layers(cfg)
     which = fa.route(getattr(torch, cfg.dtype), cfg.resolved_head_dim)
-    if launches != cfg.n_layers or fa.route_launches[which] != launches:
+    if launches != want or fa.route_launches[which] != launches:
         raise AssertionError(f"prefill launched the kernels "
                              f"{fa.route_launches} times, want one "
-                             f"{which} launch per layer ({cfg.n_layers})")
+                             f"{which} launch per attention layer ({want})")
     print(f"   {cfg.dtype} prefill: {fa.route_launches[which]} launches of "
           f"the {which} kernel", flush=True)
-    with knobs(QUIPT_ATTN_IMPL="ref"):
+    with knobs(QUIPT_ATTN_IMPL="ref"), run("plain"):
         plain = lm.prefill(model, cfg, batch)
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
     if fa.launches != launches:
         raise AssertionError("the plain path launched the kernel")
     return kern, plain, launches
@@ -1556,15 +1619,22 @@ def profile_lm(label: str, fn, top: int) -> None:
               f"{e.key[:90]}", flush=True)
 
 
-def lm_bf16_run(dev, lm, fa) -> int:
-    """qwen2.5-3b as configured (bf16): the kernel and plain prefills (a
-    cosine of 0.99 per row), their seconds, one profiled prefill, then
-    ``serve_batch``.  Returns the kernel's launches in one prefill."""
+def lm_bf16_run(dev, lm, fa, arch: str = LM_ARCH, seed: int = 1) -> dict:
+    """``arch`` (qwen2.5-3b) as configured (bf16): the kernel and plain
+    prefills, held by :func:`bf16_gate` (for an MoE arch their routing is
+    reported, :func:`compare_routes`), their seconds, one profiled
+    prefill, one profiled decode step, then ``serve_batch``.  Returns the
+    kernel's launches in one prefill, the attention calls' record
+    (:func:`attention_held`) and ``serve_batch``'s output."""
     import torch.nn.functional as F
 
-    cfg, model, batch = lm_model(lm, "bfloat16", 1, dev)
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, batch = lm_model(lm, "bfloat16", seed, dev, arch)
+    watch = PrefillWatch(lm, model, cfg)
     with torch.inference_mode():
-        kern, plain, launches = prefill_both(lm, fa, model, cfg, batch)
+        with attention_held(lm.kops, lm.kref) as held:
+            kern, plain, launches = prefill_both(lm, fa, model, cfg, batch,
+                                                 watch)
         if not (torch.isfinite(kern).all() and torch.isfinite(plain).all()):
             raise AssertionError("bf16 prefill: non-finite logits")
         cos = F.cosine_similarity(kern, plain, dim=-1)
@@ -1572,16 +1642,20 @@ def lm_bf16_run(dev, lm, fa) -> int:
               f"{float((kern - plain).abs().max()):.4g} (largest |logit| "
               f"{float(plain.abs().max()):.4g}), cosine per row "
               f"{[round(float(c), 6) for c in cos]}", flush=True)
-        if float(cos.min()) < 0.99:
-            raise AssertionError("bf16 prefill: cosine below 0.99")
+        if cfg.is_moe:
+            compare_routes(lm, cfg, watch.runs["kernel"], watch.runs["plain"],
+                           "bf16 prefill kernel vs plain path", gate=False)
+        bf16_gate(cfg, cos, watch, held, launches)
+        watch.runs.clear()
         kernel_s = prefill_seconds(lm, model, cfg, batch)
         with knobs(QUIPT_ATTN_IMPL="ref"):
             plain_s = prefill_seconds(lm, model, cfg, batch)
         print(f"   bf16 prefill {tuple(batch['tokens'].shape)}: kernel path "
-              f"{kernel_s:.4f}s, plain path {plain_s:.4f}s (median of 3)",
-              flush=True)
-        profile_lm("bf16 prefill", lambda: lm.prefill(model, cfg, batch),
-                   top=8)
+              f"{kernel_s:.4f}s, plain path {plain_s:.4f}s (median of 3); "
+              f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+              f"(max_memory_allocated)", flush=True)
+        profile_lm(f"{arch} bf16 prefill",
+                   lambda: lm.prefill(model, cfg, batch), top=8)
         # one decode step at serve_batch's batch, past a warmed-up prompt
         b, t = SERVE["batch"], SERVE["prompt_len"]
         caches = lm.init_caches(cfg, b, t + SERVE["gen"], device=dev)
@@ -1589,10 +1663,15 @@ def lm_bf16_run(dev, lm, fa) -> int:
         for p in range(t):
             pos = torch.full((b,), p, dtype=torch.int32, device=dev)
             lm.decode_step(model, caches, cfg, toks, pos)
-        profile_lm(f"bf16 decode step (batch {b}, position {t})",
+        weights = sum(p.numel() * p.element_size() for p in model.parameters())
+        print(f"   a decode step reads the weights once at least: "
+              f"{weights / 1e9:.2f} GB, {weights / HBM_BYTES_PER_S * 1e3:.2f}"
+              f" ms over the memory", flush=True)
+        profile_lm(f"{arch} bf16 decode step (batch {b}, position {t})",
                    lambda: lm.decode_step(model, caches, cfg, toks, pos + 1),
                    top=4)
-    del model, caches
+    del model, caches, watch
+    gc.collect()
     torch.cuda.empty_cache()
     out = lm.serve_batch(cfg, seed=0, device=dev, **SERVE)
     toks = out["tokens"]
@@ -1600,11 +1679,12 @@ def lm_bf16_run(dev, lm, fa) -> int:
             (toks >= 0) & (toks < cfg.vocab)).all():
         raise AssertionError(f"serve_batch returned {toks.shape} tokens out "
                              f"of range")
-    print(f"   serve_batch {SERVE}: prefill by decode {out['prefill_s']:.3f}s"
-          f", decode {out['decode_s']:.3f}s, {out['tok_per_s']:.1f} tok/s",
-          flush=True)
+    print(f"   {arch} serve_batch {SERVE}: prefill by decode "
+          f"{out['prefill_s']:.3f}s, decode {out['decode_s']:.3f}s, "
+          f"{out['tok_per_s']:.1f} tok/s", flush=True)
+    gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return {"launches": launches, "held": held, "serve": out}
 
 
 # --------------------------------------------------------------------------- #
@@ -2614,45 +2694,62 @@ def lint_clean(lint) -> None:
         raise AssertionError("quiplint found violations")
 
 
-def ssm_f32_check(dev, lm) -> None:
-    """mamba2-370m at full width in float32: its parameter count against
-    the reference's; a 1 x 512 prefill on the card against the same
-    weights and tokens on the CPU; decode over the 512 tokens against the
-    card's prefill."""
+def f32_card_vs_cpu(dev, lm, fa, arch: str, params: int,
+                    tree: int = 0) -> int:
+    """``arch`` at full width in float32 with ``attn_impl="cuda"``: its
+    parameter count against the reference's (``num_params()``, and the
+    reference tree's leaves when ``tree``); a 1 x 512 prefill on the card
+    (the CUDA-core kernel in every attention layer, the counters set to 0
+    just before) against the same weights and tokens on the CPU (the
+    plain path); decode over the 512 tokens against the card's prefill.
+    Returns the kernel's launches in the card's prefill."""
     import copy
 
-    cfg = dataclasses.replace(lm.get_arch(SSM_ARCH), dtype="float32")
-    if cfg.num_params() != SSM_PARAMS:
+    cfg = dataclasses.replace(lm.get_arch(arch), dtype="float32",
+                              attn_impl="cuda")
+    if cfg.num_params() != params:
         raise AssertionError(f"num_params() {cfg.num_params():,} against "
-                             f"the reference's {SSM_PARAMS:,}")
+                             f"the reference's {params:,}")
     model = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                            dev)
-    matrices = sum(p.numel() for p in model.parameters() if p.dim() == 2)
-    if matrices != SSM_PARAMS:
-        raise AssertionError(f"{matrices:,} matrix parameters")
+    matrices = sum(p.numel() for p in model.parameters() if p.dim() >= 2)
+    leaves = sum(p.numel() for p in model.parameters())
+    if matrices != params or (tree and leaves != tree):
+        raise AssertionError(f"{matrices:,} matrix parameters, {leaves:,} "
+                             f"in all")
     toks = torch.randint(0, cfg.vocab, (1, SSM_PROMPT),
                          generator=torch.Generator(device=dev).manual_seed(0),
                          device=dev)
-    print(f"   {SSM_ARCH} f32: {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.ssm_heads} SSD heads x {cfg.ssm_head_dim}, "
-          f"state {cfg.ssm_state}, chunk {cfg.ssm_chunk}; num_params() "
-          f"{cfg.num_params():,} == the reference's; "
-          f"{sum(p.numel() for p in model.parameters()):,} parameters in "
-          f"all; {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card",
+    print(f"   {arch} f32: {cfg.n_layers} layers ({attention_layers(cfg)} "
+          f"attention), d_model {cfg.d_model}, {cfg.ssm_heads} SSD heads x "
+          f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+          f"{cfg.ssm_chunk}; num_params() {cfg.num_params():,} == the "
+          f"reference's; {leaves:,} parameters in all"
+          + (" == the reference tree's" if tree else "")
+          + f"; {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card",
           flush=True)
     with torch.inference_mode():
         torch.cuda.synchronize()
+        fa.launches = 0
+        fa.route_launches = dict.fromkeys(fa.ROUTES, 0)
         t0 = time.perf_counter()
         card = lm.prefill(model, cfg, {"tokens": toks})
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t0
+        launches = fa.launches
+        if launches != attention_layers(cfg) or \
+                fa.route_launches["cuda_core"] != launches:
+            raise AssertionError(f"f32 prefill launched the kernels "
+                                 f"{fa.route_launches} times, want "
+                                 f"{attention_layers(cfg)} CUDA-core")
         host = copy.deepcopy(model).to("cpu")
         t0 = time.perf_counter()
         cpu = lm.prefill(host, cfg, {"tokens": toks.cpu()})
         cpu_s = time.perf_counter() - t0
         del host
         print(f"   prefill {tuple(toks.shape)}: card {card_s:.3f}s (first "
-              f"call), CPU {cpu_s:.3f}s", flush=True)
+              f"call, {launches} CUDA-core kernel launches), CPU "
+              f"{cpu_s:.3f}s", flush=True)
         close_logits(card.cpu(), cpu, f"f32 prefill {tuple(toks.shape)} "
                      f"card vs CPU")
         caches = lm.init_caches(cfg, 1, SSM_PROMPT, device=dev)
@@ -2668,6 +2765,7 @@ def ssm_f32_check(dev, lm) -> None:
                      f"prompt vs its prefill on the card")
     del model, caches
     torch.cuda.empty_cache()
+    return launches
 
 
 def ssm_bf16_serve(dev, lm) -> dict:
@@ -2701,6 +2799,334 @@ def ssm_bf16_serve(dev, lm) -> dict:
           f"{out['tok_per_s']:.1f} tok/s", flush=True)
     torch.cuda.empty_cache()
     return out
+
+
+# --------------------------------------------------------------------------- #
+# slice 12: the weight-shared (zamba2) and MoE (moonshot) blocks
+# --------------------------------------------------------------------------- #
+HYB_ARCH = "zamba2-1.2b"
+HYB_PARAMS, HYB_TREE = 934_281_216, 934_510_592  # num_params(), the tree
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_PARAMS, MOE_TREE = 28_050_849_792, 28_051_048_448
+MOE_F32_LAYERS = 4  # the f32 card/CPU twin's depth: 1 dense + 3 MoE
+MOE_DECODE = 32  # decode steps held card against CPU
+NEAR_TIE = 1e-5  # a 6th-to-7th router probability margin this small
+
+
+class PrefillWatch:
+    """By run name: each MoE layer's router probabilities (``probs``:
+    forward hooks on the MoE blocks' ``ln2``, whose output is the MoE's
+    input; one entry a layer a call) and the residual stream just after
+    the first attention layer (``after_attention``: the input of the next
+    block's ``ln1``, or of the final norm; one entry a call)."""
+
+    def __init__(self, lm, model, cfg):
+        self.lm = lm
+        specs = lm.layer_specs(model.segs)
+        self.blocks = [b for b, spec in zip(model.blocks, specs) if spec.moe]
+        first = next((i for i, spec in enumerate(specs)
+                      if spec.kind != "ssm"), None)
+        self.after = None
+        if first is not None:
+            self.after = model.blocks[first + 1].ln1 \
+                if first + 1 < len(model.blocks) else model.final_norm
+        self.runs = {}
+
+    @contextlib.contextmanager
+    def run(self, name: str):
+        rec = self.runs.setdefault(name, {"probs": [], "after_attention": []})
+        moe = self.lm.moe
+        handles = [b.ln2.register_forward_hook(
+            lambda m, i, o, b=b: rec["probs"].append(
+                moe.router_probs(b.mlp, moe.groups(o))))
+            for b in self.blocks]
+        if self.after is not None:
+            handles.append(self.after.register_forward_hook(
+                lambda m, i, o: rec["after_attention"].append(i[0].float())))
+        try:
+            yield
+        finally:
+            for h in handles:
+                h.remove()
+
+
+def _choices(routing, e: int):
+    """(G, S, E) masks of the experts each token chose and kept."""
+    chosen = torch.zeros(routing.gate_idx.shape[:2] + (e,), dtype=torch.bool,
+                         device=routing.gate_idx.device)
+    kept = chosen.clone()
+    chosen.scatter_(-1, routing.gate_idx, True)
+    kept.scatter_(-1, routing.gate_idx, routing.keep)
+    return chosen, kept
+
+
+def compare_routes(lm, cfg, a: dict, b: dict, what: str,
+                   gate: bool = True) -> None:
+    """Two runs' routing (``PrefillWatch`` records), layer by layer and
+    call by call.  With ``gate``, the top-k of a token whose 6th-to-7th
+    margin (the smaller of the two runs') exceeds ``max(NEAR_TIE, 2
+    delta)``, delta the token's largest |probability difference| between
+    the runs, must be the same set in both, and a token's kept experts may
+    differ beside the same choices only in a group where another token's
+    choices differ (its queue moved); raises otherwise.  Prints the near
+    ties (margin <= NEAR_TIE), the tokens routed differently, and without
+    ``gate`` those of each routed call (in bfloat16 a flip moves the next
+    layers' inputs, so the two runs part more and more: a report, not a
+    gate)."""
+    k, e = cfg.top_k, cfg.n_experts
+    if len(a["probs"]) != len(b["probs"]) or not a["probs"]:
+        raise AssertionError(f"{what}: {len(a['probs'])} and "
+                             f"{len(b['probs'])} routed calls")
+    near = flips = keep_only = 0
+    widest = 0.0
+    per_call = []
+    for pa, pb in zip(a["probs"], b["probs"]):
+        pb = pb.to(pa.device)
+        ca, ka = _choices(lm.moe.route(pa, cfg), e)
+        cb, kb = _choices(lm.moe.route(pb, cfg), e)
+        margin = None
+        for p in (pa, pb):
+            top = torch.sort(p, dim=-1, descending=True).values
+            m = top[..., k - 1] - top[..., k]
+            margin = m if margin is None else torch.minimum(margin, m)
+        delta = (pa - pb).abs().amax(-1)
+        widest = max(widest, float(delta.max()))
+        tie = margin <= torch.clamp(2 * delta, min=NEAR_TIE)
+        set_flip = (ca != cb).any(-1)
+        keep_flip = (ka != kb).any(-1) & ~set_flip
+        if gate and bool((set_flip & ~tie).any()):
+            raise AssertionError(
+                f"{what}: {int((set_flip & ~tie).sum())} tokens clear of a "
+                f"tie routed differently (largest margin "
+                f"{float(margin[set_flip & ~tie].max()):.3g})")
+        if gate and bool((keep_flip & ~set_flip.any(-1, keepdim=True)).any()):
+            raise AssertionError(f"{what}: kept experts differ in a group "
+                                 f"whose choices agree")
+        near += int((margin <= NEAR_TIE).sum())
+        flips += int(set_flip.sum())
+        keep_only += int(keep_flip.sum())
+        per_call.append(int(set_flip.sum()))
+    tokens = sum(p.shape[0] * p.shape[1] for p in a["probs"])
+    print(f"   routing {what}: {len(a['probs'])} routed calls, {tokens} "
+          f"token-layers; largest |probability difference| {widest:.3g}; "
+          f"near ties (margin <= {NEAR_TIE:g}) {near}; "
+          f"routed to other experts {flips}"
+          + (f", every one within max({NEAR_TIE:g}, 2 delta) of a tie"
+             if gate else f" (reported, not gated; by call {per_call})")
+          + f"; kept experts moved by another token's flip {keep_only}",
+          flush=True)
+
+
+#: the planted fault that :func:`attention_held` must see: one head's
+#: output 2% off
+PLANTED = 1.02
+#: the bf16 residual stream just after the first attention layer: the
+#: kernel path's relative difference from the plain path's, per row (the
+#: two runs are the same bits before that layer)
+RESIDUAL_RTOL = 8e-3
+
+
+@contextlib.contextmanager
+def attention_held(kops, kref):
+    """While it is open, every call into the flash-attention kernel
+    (``ops.flash_attention`` on the card) is held against the plain
+    version on the call's own inputs: ``worst`` is the largest
+    ``|kernel - plain| / (atol + rtol |plain|)`` over the calls
+    (``ATTN_TOL`` of the dtype; at most 1 to pass), ``planted`` the
+    smallest such ratio of a call's output with head 0 scaled by
+    ``PLANTED`` (above 1: the gate sees the fault in every call), and
+    ``max_abs`` the largest |kernel - plain|.  The kernel launches as the
+    caller makes it, once a call."""
+    rec = {"calls": 0, "worst": 0.0, "planted": float("inf"),
+           "max_abs": 0.0}
+    real = kops._flash_attention_cuda
+
+    def held(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        got = out.float()
+        want = kref.attention_ref(q, k, v, **kw).float()
+        rtol, atol = ATTN_TOL[q.dtype]
+        bound = atol + rtol * want.abs()
+        diff = (got - want).abs()
+        # the other heads are within their bound when the call passes
+        planted = (got[:, :, 0] * PLANTED - want[:, :, 0]).abs() \
+            / bound[:, :, 0]
+        rec["calls"] += 1
+        rec["worst"] = max(rec["worst"], float((diff / bound).max()))
+        rec["max_abs"] = max(rec["max_abs"], float(diff.max()))
+        rec["planted"] = min(rec["planted"], float(planted.max()))
+        return out
+
+    kops._flash_attention_cuda = held
+    try:
+        yield rec
+    finally:
+        kops._flash_attention_cuda = real
+
+
+def bf16_gate(cfg, cos, watch, held: dict, launches: int) -> None:
+    """The bf16 prefills' gates, ``cos`` the logits' cosine per row
+    between the kernel and plain paths.  (1) Every attention call of the
+    kernel path within ``ATTN_TOL`` of the plain version on its own
+    inputs, the planted fault seen in every call
+    (:func:`attention_held`).  (2) The residual stream just after the
+    first attention layer within ``RESIDUAL_RTOL`` of the plain path's,
+    per row.  (3) For an arch of attention and dense MLP layers only,
+    ``cos >= 0.99`` in every row.  With SSM or MoE layers (3) is
+    reported, not gated: bfloat16 SSM layers carry one rounding of
+    difference 0.96 of the way from float32 (zamba2-1.2b's plain path is
+    itself 0.957 from a float32 prefill), and an MoE layer's routing
+    flips at near ties and the flips cascade."""
+    if held["calls"] != launches:
+        raise AssertionError(f"{held['calls']} attention calls held, "
+                             f"{launches} launched")
+    print(f"   attention on the kernel path's own inputs, {held['calls']} "
+          f"calls: max |kernel - plain| {held['max_abs']:.4g}, largest "
+          f"|diff| / (atol + rtol |plain|) {held['worst']:.3f} (at most 1); "
+          f"head 0 scaled by {PLANTED}: smallest ratio {held['planted']:.3f}"
+          f" (above 1: caught in every call)", flush=True)
+    if held["worst"] > 1:
+        raise AssertionError("bf16 prefill: an attention call differs from "
+                             "the plain version on its own inputs")
+    if not held["planted"] > 1:
+        raise AssertionError("bf16 prefill: the attention gate missed the "
+                             "planted fault")
+    ka, pa = watch.runs["kernel"]["after_attention"], \
+        watch.runs["plain"]["after_attention"]
+    if len(ka) != 1 or len(pa) != 1:
+        raise AssertionError(f"{len(ka)} and {len(pa)} residuals recorded "
+                             f"after the first attention layer")
+    rel = ((ka[0] - pa[0]).flatten(1).norm(dim=-1)
+           / pa[0].flatten(1).norm(dim=-1))
+    print(f"   residual just after the first attention layer, |kernel - "
+          f"plain| / |plain| per row {[f'{float(r):.3g}' for r in rel]} "
+          f"(at most {RESIDUAL_RTOL:g})", flush=True)
+    if float(rel.max()) > RESIDUAL_RTOL:
+        raise AssertionError("bf16 prefill: the residual after the first "
+                             "attention layer differs")
+    ssm = any(cfg.layer_kind(i) == "ssm" for i in range(cfg.n_layers))
+    if ssm or cfg.is_moe:
+        print(f"   logits' cosine per row {[round(float(c), 6) for c in cos]}"
+              f": reported, not gated ({'SSM' if ssm else 'MoE'} layers)",
+              flush=True)
+    elif float(cos.min()) < 0.99:
+        raise AssertionError("bf16 prefill: kernel and plain paths' logits "
+                             "below a cosine of 0.99")
+
+
+def card_holders(top: int = 8) -> str:
+    """The live tensors on the card by shape and dtype, largest first."""
+    sizes = Counter()
+    for obj in gc.get_objects():
+        if torch.is_tensor(obj) and obj.is_cuda:
+            sizes[(tuple(obj.shape), str(obj.dtype))] += \
+                obj.numel() * obj.element_size()
+    return "; ".join(f"{shape} {dtype}: {n / 1e6:.1f} MB"
+                     for (shape, dtype), n in sizes.most_common(top))
+
+
+def assert_card_free(what: str) -> None:
+    """Under 1 GB allocated on the card before ``what`` loads."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"   before {what}: {held / 1e9:.3f} GB allocated on the card",
+          flush=True)
+    if held >= 1e9:
+        raise AssertionError(f"{held / 1e9:.2f} GB held on the card before "
+                             f"{what}: {card_holders()}")
+
+
+def moe_counts(lm, arch: str, params: int, tree: int) -> None:
+    """``arch``'s parameters on the ``meta`` device (no memory): the
+    matrices count ``num_params()`` and all of them the reference tree's
+    leaves."""
+    cfg = lm.get_arch(arch)
+    model = lm.LM(cfg, device="meta")
+    matrices = sum(p.numel() for p in model.parameters() if p.dim() >= 2)
+    leaves = sum(p.numel() for p in model.parameters())
+    print(f"   {arch}: num_params() {cfg.num_params():,}, {matrices:,} in "
+          f"matrices, {leaves:,} in all (the reference's {params:,} and "
+          f"{tree:,}); {cfg.n_layers} layers, the first "
+          f"{cfg.first_dense_layers} dense", flush=True)
+    if (cfg.num_params(), matrices, leaves) != (params, params, tree):
+        raise AssertionError(f"{arch}'s parameter counts differ from the "
+                             f"reference's")
+
+
+def moe_f32_card_vs_cpu(dev, lm, fa) -> int:
+    """moonshot-v1-16b-a3b in float32 at full width over 4 layers (1 dense,
+    3 MoE; ``attn_impl="cuda"``): a 1 x 512 prefill on the card (the
+    CUDA-core kernel in each layer, the counters set to 0 just before)
+    against the CPU's (the plain path), then 32 decode steps on both, each
+    within 1e-3 of the largest logit with the same argmax; the routing of
+    both held by :func:`compare_routes`.  Returns the kernel's launches
+    in the card's prefill."""
+    import copy
+
+    cfg = dataclasses.replace(lm.get_arch(MOE_ARCH), dtype="float32",
+                              attn_impl="cuda", n_layers=MOE_F32_LAYERS)
+    assert_card_free(f"{MOE_ARCH} f32 at {MOE_F32_LAYERS} layers")
+    g = torch.Generator(device=dev).manual_seed(2)
+    model = lm.init_params(cfg, g, dev)
+    toks = torch.randint(0, cfg.vocab, (1, SSM_PROMPT), generator=g,
+                         device=dev)
+    host = copy.deepcopy(model).to("cpu")
+    print(f"   {MOE_ARCH} f32: {cfg.n_layers} layers (the first dense), "
+          f"{cfg.n_experts} experts top-{cfg.top_k} + {cfg.n_shared_experts}"
+          f" shared, {sum(p.numel() for p in model.parameters()):,} "
+          f"parameters, {torch.cuda.memory_allocated() / 1e9:.2f} GB on the "
+          f"card", flush=True)
+    card_w = PrefillWatch(lm, model, cfg)
+    host_w = PrefillWatch(lm, host, cfg)
+    with torch.inference_mode():
+        fa.launches = 0
+        fa.route_launches = dict.fromkeys(fa.ROUTES, 0)
+        t0 = time.perf_counter()
+        with card_w.run("prefill"):
+            card = lm.prefill(model, cfg, {"tokens": toks})
+            torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = fa.launches
+        if launches != cfg.n_layers or \
+                fa.route_launches["cuda_core"] != launches:
+            raise AssertionError(f"f32 prefill launched the kernels "
+                                 f"{fa.route_launches} times, want "
+                                 f"{cfg.n_layers} CUDA-core")
+        t0 = time.perf_counter()
+        with host_w.run("prefill"):
+            cpu = lm.prefill(host, cfg, {"tokens": toks.cpu()})
+        print(f"   prefill {tuple(toks.shape)}: card {card_s:.3f}s (first "
+              f"call, {launches} CUDA-core kernel launches), CPU "
+              f"{time.perf_counter() - t0:.3f}s", flush=True)
+        compare_routes(lm, cfg, card_w.runs["prefill"],
+                       host_w.runs["prefill"], "f32 prefill card vs CPU")
+        close_logits(card.cpu(), cpu, f"f32 prefill {tuple(toks.shape)} "
+                     f"card vs CPU")
+        caches = {"card": lm.init_caches(cfg, 1, MOE_DECODE, device=dev),
+                  "cpu": lm.init_caches(cfg, 1, MOE_DECODE, device="cpu")}
+        steps = {"card": [], "cpu": []}
+        seconds = dict.fromkeys(steps, 0.0)
+        with card_w.run("decode"), host_w.run("decode"):
+            for t in range(MOE_DECODE):
+                for name, m, d in (("card", model, dev),
+                                   ("cpu", host, torch.device("cpu"))):
+                    t0 = time.perf_counter()
+                    pos = torch.full((1,), t, dtype=torch.int32, device=d)
+                    logits, caches[name] = lm.decode_step(
+                        m, caches[name], cfg, toks[:, t:t + 1].to(d), pos)
+                    steps[name].append(logits.cpu())
+                    seconds[name] += time.perf_counter() - t0
+        print(f"   {MOE_DECODE} decode steps: card {seconds['card']:.3f}s, "
+              f"CPU {seconds['cpu']:.3f}s", flush=True)
+        compare_routes(lm, cfg, card_w.runs["decode"], host_w.runs["decode"],
+                       f"f32 decode ({MOE_DECODE} steps) card vs CPU")
+        close_logits(torch.cat(steps["card"]), torch.cat(steps["cpu"]),
+                     f"f32 decode, {MOE_DECODE} steps (rows) card vs CPU")
+    del model, host, caches, card_w, host_w
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def kernel_entry(name, source, replaces, launches, t, err, library_ms):
@@ -2745,8 +3171,10 @@ def main() -> int:
         from repro_torch.launch import steps as train_steps
         from repro_torch.launch.serve import serve_batch
         from repro_torch.launch.train import quip_batch_stream, train_loop
-        from repro_torch.models import (decode_step, init_caches,
+        from repro_torch.models import (LM, decode_step, init_caches,
                                         init_params, prefill)
+        from repro_torch.models import moe as moe_mod
+        from repro_torch.models.transformer import layer_specs
         from repro_torch.analysis import lint
         from repro_torch.optim import clip_by_global_norm
         from repro_torch.checkpoint import (restore_reference_checkpoint,
@@ -2761,7 +3189,8 @@ def main() -> int:
     lm = types.SimpleNamespace(get_arch=get_arch, init_params=init_params,
                                prefill=prefill, decode_step=decode_step,
                                init_caches=init_caches,
-                               serve_batch=serve_batch)
+                               serve_batch=serve_batch, LM=LM, moe=moe_mod,
+                               layer_specs=layer_specs, kops=kops, kref=kref)
     tr = types.SimpleNamespace(
         get_arch=get_arch, init_params=init_params,
         quip_batch_stream=quip_batch_stream, train_loop=train_loop,
@@ -2980,7 +3409,8 @@ def main() -> int:
         lm_f32_launches = lm_f32_check(dev, lm, fa)
     with phase(f"slice 4: {LM_ARCH} bfloat16 as configured: prefill on both "
                f"paths, profile, serve_batch"):
-        lm_launches = lm_bf16_run(dev, lm, fa)
+        lm_run = lm_bf16_run(dev, lm, fa)
+        lm_launches = lm_run["launches"]
     torch.cuda.empty_cache()
     t_train = time.perf_counter()
     with phase("train (slice 10): the trainer's QUIP stream on the card, "
@@ -3002,7 +3432,7 @@ def main() -> int:
         lint_clean(lint)
     with phase(f"slice 11: {SSM_ARCH} float32 at full width: card == CPU, "
                f"decode == prefill, the reference's parameter count"):
-        ssm_f32_check(dev, lm)
+        f32_card_vs_cpu(dev, lm, fa, SSM_ARCH, SSM_PARAMS)
     with phase(f"slice 11: {SSM_ARCH} bfloat16 as configured: a profiled "
                f"decode step, serve_batch"):
         ssm_served = ssm_bf16_serve(dev, lm)
@@ -3069,6 +3499,39 @@ def main() -> int:
                   f"{t['bound_ms']:.5f} ms ({t['bound_by']})"
                   + (f", library {lib:.4f} ms" if lib is not None else ""),
                   flush=True)
+    # slice 12 loads 56.1 GB: the recorded main-path calls go first
+    del rec, main_shapes, bloom, bits, keys
+    t_s12 = time.perf_counter()
+    with phase(f"slice 12: {HYB_ARCH} float32 at full width: card (CUDA-core "
+               f"kernel) == CPU, decode == prefill, the reference's "
+               f"parameter counts"):
+        hyb_f32_launches = f32_card_vs_cpu(dev, lm, fa, HYB_ARCH, HYB_PARAMS,
+                                           HYB_TREE)
+    with phase(f"slice 12: {HYB_ARCH} bfloat16 as configured: prefill on "
+               f"both paths, profile, serve_batch"):
+        hyb_run = lm_bf16_run(dev, lm, fa, HYB_ARCH)
+    with phase(f"slice 12: {MOE_ARCH} bfloat16 at full width and depth "
+               f"(weights drawn on the card): prefill on both paths and "
+               f"their routing, profile, serve_batch"):
+        moe_counts(lm, MOE_ARCH, MOE_PARAMS, MOE_TREE)
+        assert_card_free(f"{MOE_ARCH} bf16")
+        moe_run = lm_bf16_run(dev, lm, fa, MOE_ARCH)
+    with phase(f"slice 12: {MOE_ARCH} float32 at {MOE_F32_LAYERS} layers: "
+               f"card == CPU, prefill and {MOE_DECODE} decode steps, and "
+               f"their routing"):
+        moe_f32_launches = moe_f32_card_vs_cpu(dev, lm, fa)
+    with phase("slice 12: flash_attention times at zamba2's and moonshot's "
+               "prefill calls"):
+        mha_t = [attention_times(dev, fa, kref, shape, torch.bfloat16)[3]
+                 for shape in MHA_CALLS]
+        torch.cuda.empty_cache()
+        for t in mha_t:
+            print(f"   flash_attention at {t['shape']}: median kernel "
+                  f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+                  f"{t['bound_ms']:.5f} ms ({t['bound_by']}), library "
+                  f"{t['library_ms']:.4f} ms", flush=True)
+    print(f"   slice 12: {time.perf_counter() - t_s12:.1f}s for its five "
+          f"phases", flush=True)
     print(f"   slice 1 launches: wifi {s1_wifi}, cdc {s1_cdc}, cdc with k=33 "
           f"{s1_cdc_k33}")
     print(f"   slice 2 launches: wifi {s2_wifi}, cdc {s2_cdc}")
@@ -3088,6 +3551,15 @@ def main() -> int:
     print(f"   slice 4 launches: flash_attention (tensor core) {lm_launches} "
           f"per bf16 {LM_ARCH} prefill, flash_attention_f32 (CUDA core) "
           f"{lm_f32_launches} per f32 prefill")
+    print(f"   slice 12 launches: flash_attention (tensor core) "
+          f"{hyb_run['launches']} per bf16 {HYB_ARCH} prefill, "
+          f"{moe_run['launches']} per bf16 {MOE_ARCH} prefill; "
+          f"flash_attention_f32 (CUDA core) {hyb_f32_launches} and "
+          f"{moe_f32_launches} per f32 prefill")
+    for name, run in ((HYB_ARCH, hyb_run), (MOE_ARCH, moe_run)):
+        print(f"   slice 12: {name} serve_batch {SERVE} "
+              f"{run['serve']['tok_per_s']:.1f} tok/s (decode "
+              f"{run['serve']['decode_s']:.3f}s)")
     print(f"total {time.perf_counter() - t_start:.1f}s", flush=True)
 
     csrc = "src/repro_torch/csrc/"
@@ -3129,13 +3601,18 @@ def main() -> int:
                      max(seg_check_err, seg_sum_t["err"]),
                      seg_sum_t["library_ms"]),
         kernel_entry("flash_attention", csrc + "flash_attention_tc.cu",
-                     "src/repro/kernels/flash_attention.py:96", lm_launches,
-                     attn_t, max(attn_check_err[torch.bfloat16],
-                                 attn_t["err"]),
+                     "src/repro/kernels/flash_attention.py:96",
+                     lm_launches + hyb_run["launches"] + moe_run["launches"],
+                     attn_t, max([attn_check_err[torch.bfloat16],
+                                  attn_t["err"]]
+                                 + [t["err"] for t in mha_t]
+                                 + [run["held"]["max_abs"] for run in
+                                    (lm_run, hyb_run, moe_run)]),
                      attn_t["library_ms"]),
         kernel_entry("flash_attention_f32", csrc + "flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:96",
-                     lm_f32_launches, attn_f32_t,
+                     lm_f32_launches + hyb_f32_launches + moe_f32_launches,
+                     attn_f32_t,
                      max(attn_check_err[torch.float32], attn_f32_t["err"]),
                      attn_f32_t["library_ms"]),
     ]

@@ -5,7 +5,9 @@ torch cannot repeat, so the packages are compared on the reference's own
 parameters: :func:`params_from_reference` takes the pytree of
 ``repro.models.init_params`` with numpy arrays as leaves, unstacks each
 segment's leading ``repeats`` axis into one block per layer, in layer
-order, and copies every leaf into the port's :class:`~models.model.LM`;
+order (a weight-shared block's leaves, held once under a segment's
+``shared``, to ``LM.shared``), and copies every leaf into the port's
+:class:`~models.model.LM`;
 :func:`train_state_from_reference` carries a whole train state (the
 parameters and the AdamW moments) across the same way, and
 :func:`load_reference_state` into a state that exists.  The other way,
@@ -73,12 +75,25 @@ def _copy(param: torch.Tensor, leaf: Any, name: str) -> None:
         param.copy_(src)
 
 
+def _flat(prefix: str, tree: Dict[str, Any]) -> Dict[str, Any]:
+    """A nested dict's leaves under dotted names."""
+    out: Dict[str, Any] = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update(_flat(f"{prefix}{key}.", val))
+        else:
+            out[f"{prefix}{key}"] = val
+    return out
+
+
 def reference_leaves(ref_tree: Dict[str, Any], model: LM) -> Dict[str, Any]:
     """The leaves of a tree shaped like the reference's parameters (its
     parameters, gradients or AdamW moments), each segment's stacked
     ``repeats`` axis unstacked, under the names of ``model``'s parameters
-    (``blocks.3.mixer.wq``, ``blocks.3.ln1.scale``, ...).  Raises when the
-    tree and the model do not hold the same parameters."""
+    (``blocks.3.mixer.wq``, ``blocks.3.ln1.scale``,
+    ``blocks.3.mlp.shared.wi``, ...); a segment's weight-shared leaves
+    (``segments[i]["shared"][j]``, one copy) under ``shared.i.j.``.
+    Raises when the tree and the model do not hold the same parameters."""
     out = {"embed": ref_tree["embed"], "final_norm.scale":
            ref_tree["final_norm"]}
     if "lm_head" in ref_tree:
@@ -86,14 +101,13 @@ def reference_leaves(ref_tree: Dict[str, Any], model: LM) -> Dict[str, Any]:
     i = 0
     for si, (seg, seg_tree) in enumerate(zip(model.segs,
                                              ref_tree["segments"])):
-        if "shared" in seg_tree:
-            raise NotImplementedError("weight-shared blocks are not ported")
+        for j, parts in seg_tree.get("shared", {}).items():
+            out.update(_flat(f"shared.{si}.{j}.", parts))
         for r in range(seg.repeats):
             for j, _ in enumerate(seg.pattern):
                 for key, val in _layer(seg_tree["blocks"][j], r).items():
                     if isinstance(val, dict):  # a mixer's or MLP's weights
-                        out.update({f"blocks.{i}.{key}.{k}": v
-                                    for k, v in val.items()})
+                        out.update(_flat(f"blocks.{i}.{key}.", val))
                     else:  # a norm's scale
                         out[f"blocks.{i}.{key}.scale"] = val
                 i += 1
@@ -137,6 +151,13 @@ def _stack(leaves: List[torch.Tensor]) -> torch.Tensor:
     return torch.stack([t.detach() for t in leaves])
 
 
+def _put(tree: Dict[str, Any], dotted: str, leaf: Any) -> None:
+    *parents, last = dotted.split(".")
+    for part in parents:
+        tree = tree.setdefault(part, {})
+    tree[last] = leaf
+
+
 def reference_tree(named: Dict[str, Any], model: LM,
                    stack: Callable[[List[Any]], Any] = _stack
                    ) -> Dict[str, Any]:
@@ -144,12 +165,13 @@ def reference_tree(named: Dict[str, Any], model: LM,
     ``model``'s parameter names: its parameters, gradients or AdamW
     moments) as a tree shaped like the reference's parameters, each
     segment's per-layer leaves joined by ``stack`` (default
-    ``torch.stack``) on a leading ``repeats`` axis."""
+    ``torch.stack``) on a leading ``repeats`` axis; a weight-shared leaf
+    is ``stack([leaf])[0]``, one copy under the segment's ``shared``."""
     out = {"embed": named["embed"], "final_norm": named["final_norm.scale"]}
     if "lm_head" in named:
         out["lm_head"] = named["lm_head"]
     segments = []
-    for seg_layers in _segment_layers(model):
+    for si, seg_layers in enumerate(_segment_layers(model)):
         blocks = []
         for layers in seg_layers:
             first = f"blocks.{layers[0]}."
@@ -163,9 +185,15 @@ def reference_tree(named: Dict[str, Any], model: LM,
                 if rest == "scale":  # a norm: the reference's leaf itself
                     block[part] = leaf
                 else:  # a mixer's or MLP's weight
-                    block.setdefault(part, {})[rest] = leaf
+                    _put(block.setdefault(part, {}), rest, leaf)
             blocks.append(block)
-        segments.append({"blocks": blocks})
+        seg_tree: Dict[str, Any] = {"blocks": blocks}
+        prefix = f"shared.{si}."
+        for name in named:
+            if name.startswith(prefix):
+                _put(seg_tree.setdefault("shared", {}), name[len(prefix):],
+                     stack([named[name]])[0])
+        segments.append(seg_tree)
     out["segments"] = segments
     return out
 

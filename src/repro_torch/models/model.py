@@ -9,10 +9,11 @@ Input conventions per family, as in the reference:
 * encoder-only (hubert): bidirectional attention, no decode path.
 
 The parameters are one :class:`LM` module (the reference's pytree): the
-embedding (also the output head when tied), the final norm and the blocks
-in layer order.  The functions take the config beside the module, as the
-reference's take it beside the pytree, so one set of weights runs under
-several ``attn_impl`` values.  There is no embedding scaling, as in the
+embedding (also the output head when tied), the final norm, the blocks in
+layer order and the weight-shared blocks (zamba2's), held once.  The
+functions take the config beside the module, as the reference's take it
+beside the pytree, so one set of weights runs under several ``attn_impl``
+values.  There is no embedding scaling, as in the
 reference.
 """
 
@@ -34,6 +35,7 @@ from repro_torch.models.transformer import (
     forward_segments,
     init_segment_caches,
     layer_specs,
+    shared_modules,
 )
 
 __all__ = [
@@ -48,9 +50,13 @@ def uses_embeds(cfg: ArchConfig) -> bool:
 
 class LM(nn.Module):
     """The model's parameters: ``embed (vocab, d)``, ``final_norm``,
-    ``blocks`` (one :class:`Block` per layer, in layer order) and, when
-    the embeddings are not tied, ``lm_head (d, vocab)``.  Weights start
-    empty until :meth:`reset_parameters` or a copy fills them."""
+    ``blocks`` (one :class:`Block` per layer, in layer order), ``shared``
+    (the weight-shared mixers and MLPs by segment and pattern position,
+    :func:`~repro_torch.models.transformer.shared_modules`; empty but for
+    zamba2) and, when the embeddings are not tied, ``lm_head (d,
+    vocab)``.  Each shared tensor is one parameter, listed once by
+    ``named_parameters()``.  Weights start empty until
+    :meth:`reset_parameters` or a copy fills them."""
 
     def __init__(self, cfg: ArchConfig, *, device=None):
         super().__init__()
@@ -64,6 +70,7 @@ class LM(nn.Module):
         self.blocks = nn.ModuleList(
             Block(cfg, spec, device=device, dtype=dt)
             for spec in layer_specs(self.segs))
+        self.shared = shared_modules(cfg, self.segs, device=device, dtype=dt)
         self.lm_head = None
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(
@@ -77,6 +84,9 @@ class LM(nn.Module):
                                     device=self.embed.device))
         for block in self.blocks:
             block.reset_parameters(generator)
+        for here in self.shared.values():
+            for block in here.values():
+                block.reset_parameters(generator)
         if self.lm_head is not None:
             self.lm_head.copy_(dense_init(generator, self.lm_head.shape,
                                           dtype=self.lm_head.dtype,
@@ -104,7 +114,7 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
 def _backbone(model: LM, cfg: ArchConfig, x, positions, causal: bool,
               remat: str) -> torch.Tensor:
     x = forward_segments(model.blocks, cfg, model.segs, x, positions,
-                         causal=causal, remat=remat)
+                         causal=causal, remat=remat, shared=model.shared)
     return model.final_norm(x)
 
 
@@ -157,7 +167,8 @@ def prefill(model: LM, cfg: ArchConfig, batch: Dict[str, Any],
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
                 device="cuda") -> List[Any]:
     """Zero caches, one per layer: a (2, B, max_len, KV, D) K/V tensor
-    for an attention layer, ``{state, conv}`` for an SSM layer."""
+    for an attention layer (a weight-shared one too), ``{state, conv}``
+    for an SSM layer."""
     return init_segment_caches(cfg, build_segments(cfg), batch, max_len,
                                torch_dtype(cfg.dtype),
                                device=resolve_device(device))
@@ -170,6 +181,6 @@ def decode_step(model: LM, caches: List[Any], cfg: ArchConfig,
     float32, caches).  The caches are updated in place."""
     x = F.embedding(tokens.long(), model.embed)
     x, caches = decode_segments(model.blocks, caches, cfg, model.segs, x,
-                                pos)
+                                pos, shared=model.shared)
     x = model.final_norm(x)
     return _logits(model, cfg, x)[:, 0], caches

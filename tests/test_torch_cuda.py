@@ -1113,3 +1113,87 @@ def test_quip_stage_kernel_and_plain_batches_equal(cuda_device, monkeypatch):
     for a, b in zip(kernel, plain):
         for k in ("tokens", "labels"):
             np.testing.assert_array_equal(a[k], b[k])
+
+
+# --------------------------------------------------------------------------- #
+# the MoE and weight-shared blocks (slice 12)
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("impl", ["einsum", "scatter"])
+@pytest.mark.parametrize("bf16_dispatch", [False, True])
+def test_moe_apply_on_card_equals_cpu(cuda_device, impl, bf16_dispatch):
+    """``moe_apply`` at the reduced moonshot widths in float32 (TF32 off),
+    two groups of 1,024 tokens, on the card and on the CPU from the same
+    weights: the same routing, outputs within rtol = atol = 2e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(get_arch("moonshot-v1-16b-a3b").reduced(),
+                              moe_impl=impl, moe_bf16_dispatch=bf16_dispatch)
+    block = moe.MoE(cfg)
+    with torch.no_grad():
+        block.reset_parameters(torch.Generator().manual_seed(0))
+    card = moe.MoE(cfg, device=cuda_device)
+    card.load_state_dict(block.state_dict())
+    x = torch.randn((2, 1024, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = moe.moe_apply(block, cfg, x)
+        got = moe.moe_apply(card, cfg, x.to(cuda_device))
+        routes = [moe.route(moe.router_probs(b, moe.groups(t)), cfg)
+                  for b, t in ((block, x), (card, x.to(cuda_device)))]
+    for a, b in zip(routes[0][1:4], routes[1][1:4]):
+        assert torch.equal(a, b.cpu())
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-4,
+                               atol=2e-4)
+
+
+def _close_to_largest(got, want, what: str) -> None:
+    """Within 1e-3 of the largest |logit| with the same argmax in every
+    row, as ``chip_smoke.py``'s card-against-CPU gates: at 14 layers the
+    reduced zamba2 turns the card's and the CPU's float32 sums in other
+    orders into logits more than 2e-4 apart (1.2e-3 on an H100)."""
+    got, want = got.cpu(), want.cpu()
+    bound = 1e-3 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= bound, what
+    assert torch.equal(got.argmax(-1), want.argmax(-1)), what
+
+
+@pytest.mark.parametrize("attn_impl", ["chunked", "cuda"])
+def test_zamba2_prefill_on_card_equals_cpu(cuda_device, attn_impl):
+    """The reduced zamba2 at 14 layers (its shared block in two layers) in
+    float32: prefill and 16 decode steps on the card against the CPU's
+    (:func:`_close_to_largest`); with ``attn_impl="cuda"`` the card's
+    attention layers launch the kernel."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import decode_step, init_caches, init_params
+    from repro_torch.models import prefill
+
+    cfg = dataclasses.replace(get_arch("zamba2-1.2b").reduced(),
+                              n_layers=14, attn_impl=attn_impl)
+    cpu_model = init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    card_model = copy.deepcopy(cpu_model).to(cuda_device)
+    toks = torch.randint(0, cfg.vocab, (2, 32),
+                         generator=torch.Generator().manual_seed(0))
+    before = fa.launches
+    with torch.inference_mode():
+        want = prefill(cpu_model, cfg, {"tokens": toks})
+        got = prefill(card_model, cfg, {"tokens": toks.to(cuda_device)})
+        torch.cuda.synchronize()
+        assert fa.launches - before == (2 if attn_impl == "cuda" else 0)
+        _close_to_largest(got, want, "prefill")
+        caches = {d: init_caches(cfg, 2, 16, device=d)
+                  for d in ("cpu", cuda_device)}
+        for t in range(16):
+            out = {}
+            for d, m in (("cpu", cpu_model), (cuda_device, card_model)):
+                pos = torch.full((2,), t, dtype=torch.int32, device=d)
+                out[d], caches[d] = decode_step(m, caches[d], cfg,
+                                                toks[:, t:t + 1].to(d), pos)
+            _close_to_largest(out[cuda_device], out["cpu"], f"step {t}")

@@ -154,8 +154,7 @@ def test_converter_rejects_a_mismatch():
                               device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "moonshot-v1-16b-a3b",
-                                  "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b"])
 def test_unported_blocks_raise(arch):
     cfg = get_arch(arch).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP"):

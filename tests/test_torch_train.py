@@ -46,7 +46,8 @@ from repro_torch.models.model import uses_embeds
 DENSE = ["qwen2.5-3b", "qwen3-8b", "gemma-7b", "gemma2-27b",
          "hubert-xlarge", "pixtral-12b"]
 SSM = ["mamba2-370m"]
-UNPORTED = ["deepseek-v3-671b", "moonshot-v1-16b-a3b", "zamba2-1.2b"]
+MOE_HYBRID = ["moonshot-v1-16b-a3b", "zamba2-1.2b"]
+UNPORTED = ["deepseek-v3-671b"]
 HPARAMS = dict(peak_lr=1e-4, warmup=1, total_steps=10)
 
 
@@ -145,6 +146,95 @@ def test_train_step_twin(arch):
     assert moved > 1e-4
 
 
+def _float64_grads(model, cfg, batch, monkeypatch):
+    """The gradients of a float64 copy of ``model``, its ``.float()`` casts
+    kept in float64 (as ``test_torch_ssm.py``'s gradient-noise test)."""
+    import copy
+
+    to_f32 = torch.Tensor.float
+    with monkeypatch.context() as m:
+        m.setattr(torch.Tensor, "float", lambda t, *a, **k: (
+            t if t.dtype == torch.float64 else to_f32(t, *a, **k)))
+        _, wide = S.loss_and_grads(copy.deepcopy(model).double(), cfg, batch)
+    return wide
+
+
+@pytest.mark.parametrize("arch,layers", [("moonshot-v1-16b-a3b", None),
+                                         ("zamba2-1.2b", 14)])
+def test_train_step_twin_moe_and_hybrid(monkeypatch, arch, layers):
+    """One AdamW step from the reference's train state, for the reduced
+    moonshot (a dense layer, then an MoE) and zamba2 at 14 layers (its
+    shared block in two layers, whose gradient is the sum over both): the
+    gradients at the same parameters, the loss, gnorm and lr, and the
+    parameters after the step.
+
+    moonshot's gradients are held against the reference's as
+    ``test_torch_ssm.py``'s twin holds the SSM's: rtol 1e-4 plus 1e-5 of
+    each leaf's largest |gradient|.  zamba2's at 14 layers are beyond
+    float32's reach at that bound: against a float64 gradient of the same
+    step the reference's misses it (asserted below), and so do the two
+    packages against each other.  So each package's gradient is held
+    against the float64 one at rtol 1e-4 plus 2e-3 of the leaf's
+    largest."""
+    overrides = {} if layers is None else {"n_layers": layers}
+    cfg, ref_state = _reference_state(arch, seed=6, **overrides)
+    state = train_state_from_reference(_numpy(ref_state), cfg, device="cpu")
+    port_cfg = config_from_reference(cfg)
+    model = state["params"]
+    batch = _batches(cfg, 1, s=32, seed=6)[0]
+    jb, tb = _to_jax(batch), _to_port(batch)
+    want = reference_leaves(_numpy(jax.grad(
+        lambda p: jax_loss_fn(p, cfg, jb, remat="full"))(
+            ref_state["params"])), model)
+    if layers:
+        wide = _float64_grads(model, port_cfg, tb, monkeypatch)
+    _, grads = S.loss_and_grads(model, port_cfg, tb)
+    assert sorted(grads) == sorted(want)
+    if layers is None:
+        for name, g in want.items():
+            np.testing.assert_allclose(grads[name].numpy(), g, rtol=1e-4,
+                                       atol=1e-5 * np.abs(g).max(),
+                                       err_msg=name)
+    else:
+        assert float(np.abs(want["shared.0.5.mixer.wq"]).max()) > 0
+        missed = 0
+        for name, g in wide.items():
+            g = g.numpy()
+            for got in (grads[name].double().numpy(), want[name]):
+                np.testing.assert_allclose(got, g, rtol=1e-4,
+                                           atol=2e-3 * np.abs(g).max(),
+                                           err_msg=name)
+            missed += not np.all(np.abs(want[name] - g) <= 1e-4 * np.abs(g)
+                                 + 1e-5 * np.abs(g).max())
+        assert missed > 0
+    ref_state, ref_m = jax.jit(RS.build_train_step(cfg, **HPARAMS))(
+        ref_state, jb)
+    _, m = S.build_train_step(port_cfg, **HPARAMS)(state, tb)
+    np.testing.assert_allclose(float(m["loss"]), float(ref_m["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(m["gnorm"]), float(ref_m["gnorm"]),
+                               rtol=1e-4)
+    np.testing.assert_allclose(float(m["lr"]), float(ref_m["lr"]), rtol=1e-6)
+    # AdamW's first step moves each element by lr * c g / (|c g| + eps),
+    # c the clip's scale: where a gradient is near eps / c its rounding
+    # noise moves the step (up to 2 lr), so the parameters are held
+    # within 1e-5 plus the difference of the two steps the gradients imply
+    lr = float(m["lr"])
+
+    def first_step(g, gnorm):
+        cg = g * min(1.0, 1.0 / gnorm)
+        return lr * cg / (np.abs(cg) + 1e-8)
+
+    after = reference_leaves(_numpy(ref_state["params"]), model)
+    for name, p in model.named_parameters():
+        implied = np.abs(first_step(grads[name].double().numpy(),
+                                    float(m["gnorm"]))
+                         - first_step(want[name].astype(np.float64),
+                                      float(ref_m["gnorm"])))
+        diff = np.abs(p.detach().numpy() - after[name])
+        assert np.all(diff <= 1e-5 + implied), (name, float(diff.max()))
+
+
 def test_train_state_from_reference_carries_everything():
     """Moments, count and step of a state in mid-run come across exactly."""
     cfg, ref_state = _reference_state("qwen2.5-3b", seed=2)
@@ -219,7 +309,7 @@ def test_remat_recomputes_what_the_policy_says():
             counts["none"][op]
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE_HYBRID)
 def test_abstract_train_state_matches_eval_shape(arch):
     """At full width: every parameter's and moment's shape and dtype equal
     the reference's ``eval_shape``, and the counters are int32 scalars;
@@ -250,7 +340,7 @@ def test_abstract_train_state_matches_eval_shape(arch):
 
 
 def test_optimizer_for_follows_the_reference():
-    for arch in DENSE + SSM + UNPORTED:
+    for arch in DENSE + SSM + MOE_HYBRID + UNPORTED:
         assert S.optimizer_for(get_arch(arch)) == \
             RS.optimizer_for(jax_get_arch(arch))
     assert S.optimizer_for(get_arch("deepseek-v3-671b")) == "adafactor"
