@@ -144,6 +144,32 @@ difference) of a tie).  Both archs' attention is multi-head: (2, 4096, 32,
 32, 64) and (2, 4096, 16, 16, 128) are checked against the plain version
 in both dtypes and timed in bfloat16.
 
+Slice 13 adds MLA and the sharding layer, after slice 12's phases.
+deepseek-v3-671b (MLA: 128 heads over a 512-wide latent and a 64-wide
+shared rotary key; 256 experts top-8 + 1 shared; 670,098,718,720
+parameters at full width, counted on the ``meta`` device) runs at full
+width, its depth cut: in float32 over its 3 dense layers (10.7 GB), a 1 x
+512 prefill on the card against the CPU's and 32 decode steps against the
+prefill of each prefix (1e-3 of the largest logit, same argmax); one MLA
+layer in float32 at 1 x 2048, ``"chunked"`` (the plain flash as MQA)
+against the materialised softmax and a decode over the filled latent
+cache against the materialised rows (rtol = atol = 2e-4); in bfloat16
+over 5 layers (3 dense + 2 MoE, 51.4 GB drawn on the card) a 2 x 4096
+prefill (seconds, peak memory under the card's, routing per expert and
+drops at capacity, a profile), the logits' cosine against the
+materialised path at 1 x 2048 (reported), the latent cache's bytes beside
+a GQA cache's, a profiled decode step and ``serve_batch``; the bf16 gate
+holds the first MLA layer's chunked context against the materialised one
+on that layer's captured input, each head's relative L2 distance over
+each query block within one rounding step, a planted fault (head 0 x 1.02
+in any one query block) failing it.  MLA runs no hand-written kernel: the
+reference sends it to no Pallas kernel.  Last, the sharding layer on one
+rank over NCCL (``make_host_mesh``): deepseek's 3 layers in bf16 placed by
+``param_specs(serving=True)`` and moved by ``reshard_state``, every local
+tensor and the prefill on the resharded weights equal to the originals
+bit for bit.  On a (1, 1) mesh every placement is a copy: the phase shows
+that NCCL starts and that the placement walk round-trips, no split.
+
 Each configuration runs once through the kernels and once through the plain
 versions, whose answers and imputation counts must agree; slice 2's wifi
 answers must also equal slice 1's.  The last phases check the paper's
@@ -3129,6 +3155,471 @@ def moe_f32_card_vs_cpu(dev, lm, fa) -> int:
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# slice 13: MLA (deepseek-v3-671b) and the sharding layer
+# --------------------------------------------------------------------------- #
+DSV3_ARCH = "deepseek-v3-671b"
+DSV3_PARAMS = 670_098_718_720  # num_params() at full width, the reference's
+DSV3_F32_LAYERS = 3  # all dense: 2,677,080,064 parameters, 10.71 GB in f32
+DSV3_BF16_LAYERS = 5  # 3 dense + 2 MoE: 25,691,619,328 parameters, 51.4 GB
+DSV3_PROMPT = 512
+DSV3_DECODE = 32  # decode steps held against the prefill of each prefix
+MLA_SEQ = 2048  # the f32 MLA layer's tokens, and the bf16 cosine's
+MLA_TOL = 2e-4  # float32 twins: rtol = atol
+
+
+def dsv3_cfg(lm, layers: int, dtype: str = "bfloat16"):
+    """deepseek-v3-671b at full width, cut to ``layers`` layers (the first
+    three dense), ``attn_impl="chunked"`` as configured."""
+    return dataclasses.replace(lm.get_arch(DSV3_ARCH), n_layers=layers,
+                               dtype=dtype)
+
+
+def dsv3_counts(lm) -> None:
+    """deepseek on the ``meta`` device at full width: its matrices count
+    ``num_params()``, the reference's 670,098,718,720; the cut configs'
+    counts."""
+    cfg = lm.get_arch(DSV3_ARCH)
+    model = lm.LM(cfg, device="meta")
+    matrices = sum(p.numel() for p in model.parameters() if p.dim() >= 2)
+    cut = {n: dsv3_cfg(lm, n).num_params()
+           for n in (DSV3_F32_LAYERS, DSV3_BF16_LAYERS)}
+    print(f"   {DSV3_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} MLA heads (q_lora {cfg.q_lora_rank}, kv_lora "
+          f"{cfg.kv_lora_rank}, nope {cfg.nope_head_dim}, rope "
+          f"{cfg.rope_head_dim}, v {cfg.v_head_dim}), {cfg.n_experts} "
+          f"experts top-{cfg.top_k} + {cfg.n_shared_experts} shared; "
+          f"num_params() {cfg.num_params():,}, {matrices:,} in the meta "
+          f"model's matrices (the reference's {DSV3_PARAMS:,}); cut to "
+          + ", ".join(f"{n} layers: {c:,}" for n, c in cut.items()),
+          flush=True)
+    if (cfg.num_params(), matrices) != (DSV3_PARAMS, DSV3_PARAMS):
+        raise AssertionError(f"{DSV3_ARCH}'s parameter counts differ from "
+                             f"the reference's")
+
+
+def within(got, want, rtol: float, atol: float, what: str) -> float:
+    """``|got - want| <= atol + rtol |want|`` everywhere; returns the
+    largest ratio of the two sides (at most 1 to pass)."""
+    got, want = got.float(), want.float()
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{what}: non-finite values")
+    diff = (got - want).abs()
+    ratio = float((diff / (atol + rtol * want.abs())).max())
+    print(f"   {what}: max |diff| {float(diff.max()):.4g} (largest |value| "
+          f"{float(want.abs().max()):.4g}), largest |diff| / (atol + rtol "
+          f"|want|) {ratio:.3f} at rtol {rtol:g}, atol {atol:g}", flush=True)
+    if ratio > 1:
+        raise AssertionError(f"{what}: outside the tolerance")
+    return ratio
+
+
+def dsv3_f32_card_vs_cpu(dev, lm) -> None:
+    """deepseek in float32 at full width over its 3 dense layers (MLA under
+    ``"chunked"``): a 1 x 512 prefill on the card against the same weights
+    and tokens on the CPU, then 32 decode steps on the card, each against
+    the card's prefill of its prefix; within 1e-3 of the largest logit,
+    with the same argmax."""
+    cfg = dsv3_cfg(lm, DSV3_F32_LAYERS, "float32")
+    assert_card_free(f"{DSV3_ARCH} f32 at {DSV3_F32_LAYERS} layers")
+    g = torch.Generator(device=dev).manual_seed(3)
+    t0 = time.perf_counter()
+    model = lm.init_params(cfg, g, dev)
+    toks = torch.randint(0, cfg.vocab, (1, DSV3_PROMPT), generator=g,
+                         device=dev)
+    torch.cuda.synchronize()
+    print(f"   {DSV3_ARCH} f32: {cfg.n_layers} dense layers, "
+          f"{cfg.num_params():,} parameters, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, drawn "
+          f"in {time.perf_counter() - t0:.2f}s", flush=True)
+    host = lm.LM(cfg, device="cpu")
+    host.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        card = lm.prefill(model, cfg, {"tokens": toks})
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = lm.prefill(host, cfg, {"tokens": toks.cpu()})
+        print(f"   prefill {tuple(toks.shape)}: card {card_s:.3f}s (first "
+              f"call), CPU {time.perf_counter() - t0:.3f}s", flush=True)
+        close_logits(card.cpu(), cpu, f"f32 prefill {tuple(toks.shape)} "
+                     f"card vs CPU")
+        caches = lm.init_caches(cfg, 1, DSV3_DECODE, device=dev)
+        steps, pres = [], []
+        t0 = time.perf_counter()
+        for t in range(DSV3_DECODE):
+            pos = torch.full((1,), t, dtype=torch.int32, device=dev)
+            logits, caches = lm.decode_step(model, caches, cfg,
+                                            toks[:, t:t + 1], pos)
+            steps.append(logits)
+            pres.append(lm.prefill(model, cfg, {"tokens": toks[:, :t + 1]}))
+        torch.cuda.synchronize()
+        print(f"   {DSV3_DECODE} decode steps and the prefills of their "
+              f"prefixes: {time.perf_counter() - t0:.3f}s", flush=True)
+        close_logits(torch.cat(steps), torch.cat(pres),
+                     f"f32 decode, {DSV3_DECODE} steps (rows) vs the prefill "
+                     f"of each prefix on the card")
+    del model, host, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mla_layer_f32(dev, lm) -> None:
+    """One MLA layer at deepseek's full width in float32 on the card, 1 x
+    2048 tokens: ``"chunked"`` (the plain flash of ``models/flash.py`` as
+    MQA) against the materialised softmax, rtol = atol = 2e-4; then
+    ``mla_decode`` over the 2,048 tokens, one at a time into the latent
+    cache, against the materialised prefill's rows (its last, and all)."""
+    attn = lm.attn
+    cfg = dsv3_cfg(lm, 1, "float32")
+    naive = dataclasses.replace(cfg, attn_impl="naive")
+    g = torch.Generator(device=dev).manual_seed(4)
+    block = attn.MLA(cfg, device=dev)
+    block.reset_parameters(g)
+    x = torch.randn((1, MLA_SEQ, cfg.d_model), generator=g, device=dev)
+    pos = torch.arange(MLA_SEQ, device=dev)
+    with torch.inference_mode():
+        times = {}
+        for name, c in (("chunked", cfg), ("materialised", naive)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            times[name] = attn.mla_apply(block, c, x, pos, local=False)
+            torch.cuda.synchronize()
+            print(f"   MLA layer f32 {tuple(x.shape)} {name}: "
+                  f"{time.perf_counter() - t0:.3f}s (first call)", flush=True)
+        within(times["chunked"], times["materialised"], MLA_TOL, MLA_TOL,
+               f"f32 MLA layer {tuple(x.shape)} chunked vs materialised")
+        cache = attn.init_kv_cache(cfg, 1, MLA_SEQ, torch.float32,
+                                   device=dev)
+        rows = []
+        t0 = time.perf_counter()
+        for t in range(MLA_SEQ):
+            out, _ = attn.mla_decode(block, cfg, x[:, t:t + 1], cache,
+                                     pos[t:t + 1], local=False)
+            rows.append(out[:, 0])
+        torch.cuda.synchronize()
+        print(f"   {MLA_SEQ} MLA decode steps over a (1, {MLA_SEQ}, "
+              f"{cache.shape[-1]}) latent cache: "
+              f"{time.perf_counter() - t0:.3f}s", flush=True)
+        dec = torch.stack(rows, dim=1)
+        want = times["materialised"]
+        within(dec[:, -1], want[:, -1], MLA_TOL, MLA_TOL,
+               "f32 MLA decode over the filled cache vs the materialised "
+               "prefill's last row")
+        within(dec, want, MLA_TOL, MLA_TOL,
+               f"f32 MLA decode, all {MLA_SEQ} rows")
+    del block, x, times, cache, rows, dec
+    torch.cuda.empty_cache()
+
+
+def route_stats(lm, cfg, probs: list, what: str) -> None:
+    """Each routed call's choices per expert and the choices dropped at
+    capacity."""
+    for i, p in enumerate(probs):
+        r = lm.moe.route(p, cfg)
+        per = torch.bincount(r.gate_idx.flatten(), minlength=cfg.n_experts)
+        total = r.keep.numel()
+        dropped = total - int(r.keep.sum())
+        none_kept = int((~r.keep.any(-1)).sum())
+        print(f"   routing, {what}, MoE layer {i}: {p.shape[0]} group(s) of "
+              f"{p.shape[1]} tokens, capacity {r.cap} a group; choices per "
+              f"expert min {int(per.min())}, median "
+              f"{int(per.float().median())}, max {int(per.max())}; "
+              f"{dropped} of {total} choices dropped at capacity, "
+              f"{none_kept} tokens with none kept", flush=True)
+
+
+#: the bf16 MLA gate: each head's context, chunked against materialised,
+#: within this relative L2 distance over each of the head's query blocks
+#: (``attn_q_chunk`` rows by kv_lora)
+MLA_BF16_RTOL = ATTN_TOL[torch.bfloat16][0]
+
+
+def mla_bf16_gate(lm, cfg, mixer, h) -> dict:
+    """The bf16 gate: on ``h``, the first MLA layer's input captured in
+    the 2 x 4096 prefill, ``"chunked"``'s context against the
+    materialised path's, one batch row at a time: each head's relative
+    L2 distance over each query block of ``attn_q_chunk`` rows (by
+    kv_lora) within ``MLA_BF16_RTOL`` (one bf16 rounding step); head 0's
+    context scaled by ``PLANTED`` in any one query block must fail that
+    check (the smallest of head 0's block readings with the head scaled,
+    each the reading of a fault confined to that block).  Per element the
+    paths part by more than one rounding: both round the logits to bf16
+    (the materialised path each of its two logit einsums, the chunked one
+    their sum) and the materialised one its softmax weights, and where a
+    context element sums terms that cancel the difference stands out
+    against its small value; so the elementwise ratio (``ATTN_TOL``) is
+    reported, with the distance over a whole head and each path's
+    distance from a float32 computation of the layer on the same input.
+    Returns the numbers."""
+    attn = lm.attn
+    rtol, atol = ATTN_TOL[torch.bfloat16]
+    s, q = h.shape[1], cfg.attn_q_chunk
+    pos = torch.arange(s, device=h.device)
+    mask = torch.where(pos[None, :] <= pos[:, None], 0.0, -1e30).to(
+        torch.float32)[None, None]
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    wide = attn.MLA(cfg32, device=h.device)
+    wide.load_state_dict({k: v.float() for k, v in mixer.state_dict().items()})
+    rec = {"worst": 0.0, "worst_block": None, "planted": float("inf"),
+           "planted_block": None, "by_block": [0.0] * (s // q),
+           "whole_head": 0.0, "elementwise": 0.0, "max_abs": 0.0,
+           "chunked_f32": 0.0, "materialised_f32": 0.0, "out_abs": 0.0,
+           "out_max": 0.0}
+
+    def block_rel(a, b):  # (row, query block, head) over (q, kv_lora)
+        a, b = a.unflatten(1, (-1, q)), b.unflatten(1, (-1, q))
+        return (a - b).norm(dim=(2, 4)) / b.norm(dim=(2, 4))
+
+    def head_rel(a, b):  # (row, head) over (S, kv_lora)
+        return (a - b).norm(dim=(1, 3)) / b.norm(dim=(1, 3))
+
+    with torch.inference_mode():
+        for row in range(h.shape[0]):
+            parts = attn.mla_qkv(mixer, cfg, h[row:row + 1], pos)
+            got = attn.mla_flash_context(mixer, cfg, *parts)
+            want = attn.mla_context(mixer, cfg, *parts, mask)
+            g32, w32 = got.float(), want.float()
+            rel = block_rel(g32, w32)[0]  # (blocks, heads)
+            if float(rel.max()) > rec["worst"]:
+                rec["worst"] = float(rel.max())
+                blk, head = divmod(int(rel.argmax()), rel.shape[1])
+                rec["worst_block"] = (row, blk, head)
+            rec["by_block"] = [max(a, float(b)) for a, b in
+                               zip(rec["by_block"], rel.max(dim=1).values)]
+            rec["whole_head"] = max(rec["whole_head"],
+                                    float(head_rel(g32, w32).max()))
+            planted = g32.clone()
+            planted[:, :, 0] *= PLANTED
+            caught = block_rel(planted, w32)[0, :, 0]
+            if float(caught.min()) < rec["planted"]:
+                rec["planted"] = float(caught.min())
+                rec["planted_block"] = (row, int(caught.argmin()))
+            diff = (g32 - w32).abs()
+            rec["max_abs"] = max(rec["max_abs"], float(diff.max()))
+            rec["elementwise"] = max(rec["elementwise"], float(
+                (diff / (atol + rtol * w32.abs())).max()))
+            del planted, diff
+            ref = attn.mla_context(wide, cfg32, *[t.float() for t in parts],
+                                   mask)
+            rec["chunked_f32"] = max(rec["chunked_f32"],
+                                     float(block_rel(g32, ref).max()))
+            rec["materialised_f32"] = max(rec["materialised_f32"],
+                                          float(block_rel(w32, ref).max()))
+            del ref
+            out_g = attn.mla_project(mixer, cfg, got).float()
+            out_w = attn.mla_project(mixer, cfg, want).float()
+            rec["out_abs"] = max(rec["out_abs"],
+                                 float((out_g - out_w).abs().max()))
+            rec["out_max"] = max(rec["out_max"], float(out_w.abs().max()))
+            del parts, got, want, g32, w32, out_g, out_w
+    by_block = ", ".join(f"{v:.4g}" for v in rec["by_block"])
+    print(f"   bf16 MLA context on the first layer's input "
+          f"{tuple(h.shape)}, chunked vs materialised: each head's "
+          f"relative L2 distance over a query block of {q} rows at most "
+          f"{rec['worst']:.4g} (bound {MLA_BF16_RTOL:g}; batch row, block, "
+          f"head {rec['worst_block']}); the largest by block {by_block}; "
+          f"over a whole head at most {rec['whole_head']:.4g} (reported); "
+          f"head 0 scaled by {PLANTED} in any one query block: at least "
+          f"{rec['planted']:.4g} (batch row, block {rec['planted_block']}; "
+          f"above the bound: caught); per element max |diff| "
+          f"{rec['max_abs']:.4g}, largest |diff| / (atol + rtol |want|) "
+          f"{rec['elementwise']:.3f} (reported); from a float32 "
+          f"computation: chunked {rec['chunked_f32']:.4g}, materialised "
+          f"{rec['materialised_f32']:.4g} (largest block); the layer's "
+          f"output max |diff| {rec['out_abs']:.4g} (largest |value| "
+          f"{rec['out_max']:.4g})", flush=True)
+    if rec["worst"] > MLA_BF16_RTOL:
+        raise AssertionError("bf16 MLA: chunked differs from the "
+                             "materialised path by more than a rounding")
+    if not rec["planted"] > MLA_BF16_RTOL:
+        raise AssertionError("bf16 MLA: the gate missed the planted fault")
+    del wide
+    return rec
+
+
+def dsv3_bf16_run(dev, lm) -> dict:
+    """deepseek in bf16 at full width over 5 layers (3 dense + 2 MoE,
+    51.4 GB drawn on the card one tensor at a time): a 2 x 4096 prefill
+    under ``"chunked"`` (seconds, peak memory under the card's, routing,
+    a profile), the logits' cosine against the materialised path at 1 x
+    2048 (reported), the latent cache's bytes, one profiled decode step
+    at serve_batch's batch and its routing; then the bf16 gate
+    (:func:`mla_bf16_gate`) on the first MLA layer's input, and
+    ``serve_batch``."""
+    import torch.nn.functional as F
+
+    cfg = dsv3_cfg(lm, DSV3_BF16_LAYERS)
+    assert_card_free(f"{DSV3_ARCH} bf16 at {DSV3_BF16_LAYERS} layers")
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(5)
+    t0 = time.perf_counter()
+    model = lm.init_params(cfg, g, dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ), generator=g,
+                         device=dev)
+    batch = {"tokens": toks}
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    drawing = torch.cuda.max_memory_allocated()
+    print(f"   {DSV3_ARCH} bf16: {cfg.n_layers} layers, "
+          f"{cfg.num_params():,} parameters, {weights / 1e9:.2f} GB of "
+          f"weights drawn in {draw_s:.2f}s, peak {drawing / 1e9:.2f} GB "
+          f"while drawing (card {card_bytes / 1e9:.2f} GB)", flush=True)
+    watch = PrefillWatch(lm, model, cfg)
+    first = {}
+    hook = model.blocks[0].ln1.register_forward_hook(
+        lambda m, i, o: first.setdefault("h", o))
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with watch.run("prefill"):
+            logits = lm.prefill(model, cfg, batch)
+            torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        hook.remove()
+        if not torch.isfinite(logits).all():
+            raise AssertionError("bf16 prefill: non-finite logits")
+        secs = prefill_seconds(lm, model, cfg, batch)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"   bf16 prefill {tuple(toks.shape)} (chunked MLA): "
+              f"{secs:.4f}s (median of 3; first call {first_s:.3f}s); "
+              f"peak {peak / 1e9:.2f} GB (max_memory_allocated)",
+              flush=True)
+        if peak >= 80e9:
+            raise AssertionError(f"bf16 prefill peak {peak / 1e9:.2f} GB")
+        route_stats(lm, cfg, watch.runs["prefill"]["probs"],
+                    f"prefill {tuple(toks.shape)}")
+        profile_lm(f"{DSV3_ARCH} bf16 prefill",
+                   lambda: lm.prefill(model, cfg, batch), top=8)
+        short = {"tokens": toks[:1, :MLA_SEQ]}
+        a = lm.prefill(model, cfg, short)
+        b = lm.prefill(model, dataclasses.replace(cfg, attn_impl="naive"),
+                       short)
+        cos = F.cosine_similarity(a.float(), b.float(), dim=-1)
+        print(f"   bf16 prefill (1, {MLA_SEQ}) chunked vs materialised: "
+              f"logits' cosine {float(cos.min()):.6f}, max |diff| "
+              f"{float((a - b).abs().max()):.4g} (largest |logit| "
+              f"{float(b.abs().max()):.4g}): reported, not gated (MoE "
+              f"routing flips cascade)", flush=True)
+        del a, b, logits
+        latent = lm.init_caches(cfg, 1, 1, device=dev)[0]
+        per_token = latent.shape[-1] * latent.element_size()
+        gqa = 2 * cfg.n_heads * 128 * latent.element_size()
+        print(f"   the latent cache holds {latent.shape[-1]} elements, "
+              f"{per_token} bytes a token a layer in bf16; a GQA cache of "
+              f"{cfg.n_heads} heads of 128 would hold {gqa // 2:,} "
+              f"({gqa:,} bytes), {gqa / per_token:.1f} times as much",
+              flush=True)
+        b_, t = SERVE["batch"], SERVE["prompt_len"]
+        caches = lm.init_caches(cfg, b_, t + SERVE["gen"], device=dev)
+        dtoks = toks[:1, :b_].reshape(b_, 1)
+        for p in range(t):
+            pos = torch.full((b_,), p, dtype=torch.int32, device=dev)
+            lm.decode_step(model, caches, cfg, dtoks, pos)
+        with watch.run("decode"):
+            lm.decode_step(model, caches, cfg, dtoks, pos + 1)
+        route_stats(lm, cfg, watch.runs["decode"]["probs"],
+                    f"one decode step at batch {b_}")
+        print(f"   a decode step reads the weights once at least: "
+              f"{weights / 1e9:.2f} GB, "
+              f"{weights / HBM_BYTES_PER_S * 1e3:.2f} ms over the memory",
+              flush=True)
+        profile_lm(f"{DSV3_ARCH} bf16 decode step (batch {b_}, position "
+                   f"{t + 1})",
+                   lambda: lm.decode_step(model, caches, cfg, dtoks,
+                                          pos + 2), top=6)
+    mixer, h = model.blocks[0].mixer, first["h"]
+    del model, caches, watch, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    gate = mla_bf16_gate(lm, cfg, mixer, h)
+    del mixer, h
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = lm.serve_batch(cfg, seed=0, device=dev, **SERVE)
+    toks = out["tokens"]
+    if toks.shape != (SERVE["batch"], SERVE["gen"]) or not (
+            (toks >= 0) & (toks < cfg.vocab)).all():
+        raise AssertionError(f"serve_batch returned {toks.shape} tokens out "
+                             f"of range")
+    print(f"   {DSV3_ARCH} ({cfg.n_layers} layers) serve_batch {SERVE}: "
+          f"prefill by decode {out['prefill_s']:.3f}s, decode "
+          f"{out['decode_s']:.3f}s, {out['tok_per_s']:.1f} tok/s",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"prefill_s": secs, "peak": peak, "gate": gate, "serve": out}
+
+
+def reshard_on_nccl(dev, lm, sh) -> None:
+    """The sharding layer on the card: ``make_host_mesh()`` over NCCL on
+    one rank; deepseek's 3 dense layers in bf16 (5.4 GB) placed by
+    ``param_specs(serving=True)``, then moved by ``reshard_state`` onto
+    the same mesh (the training rules, through the host).  Every local
+    tensor must equal the original bit for bit, after both, and so must
+    the prefill on the resharded weights (taken back to plain tensors by
+    ``place_state``).  On one rank each placement is a copy, so this
+    shows NCCL starting and the walk round-tripping, not a split."""
+    import torch.distributed as dist
+
+    cfg = dsv3_cfg(lm, DSV3_F32_LAYERS)
+    assert_card_free(f"{DSV3_ARCH} bf16 at {DSV3_F32_LAYERS} layers on a "
+                     f"mesh")
+    mesh = sh.make_host_mesh(device=dev)
+    try:
+        print(f"   mesh {tuple(mesh.mesh.shape)} over "
+              f"{tuple(mesh.mesh_dim_names)}, backend "
+              f"{dist.get_backend()}, world size {dist.get_world_size()}",
+              flush=True)
+        g = torch.Generator(device=dev).manual_seed(6)
+        model = lm.init_params(cfg, g, dev)
+        toks = torch.randint(0, cfg.vocab, (1, DSV3_PROMPT), generator=g,
+                             device=dev)
+        with torch.inference_mode():
+            want = lm.prefill(model, cfg, {"tokens": toks})
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+        def check(what: str) -> None:
+            bad = [n for n, p in model.named_parameters()
+                   if not torch.equal(p.to_local(), before[n])]
+            print(f"   {what}: {len(before)} DTensor parameters, "
+                  f"{sum(p.numel() for p in before.values()):,} values, "
+                  f"{len(bad)} local tensors differ from the originals",
+                  flush=True)
+            if bad:
+                raise AssertionError(f"{what}: {bad[:4]} differ")
+
+        specs = sh.param_specs(model, mesh, serving=True)
+        t0 = time.perf_counter()
+        sh.place_state(model, specs,
+                       lambda p, spec: sh.distribute(p, mesh, spec))
+        torch.cuda.synchronize()
+        check(f"placed by param_specs(serving=True) in "
+              f"{time.perf_counter() - t0:.2f}s")
+        t0 = time.perf_counter()
+        sh.reshard_state(model, mesh)
+        torch.cuda.synchronize()
+        check(f"reshard_state through the host in "
+              f"{time.perf_counter() - t0:.2f}s")
+        sh.place_state(model, specs, lambda p, spec: p.to_local())
+        with torch.inference_mode():
+            got = lm.prefill(model, cfg, {"tokens": toks})
+        same = torch.equal(got, want)
+        print(f"   prefill (1, {DSV3_PROMPT}) on the resharded weights: "
+              f"{'equal' if same else 'NOT equal'} bit for bit", flush=True)
+        if not same:
+            raise AssertionError("the prefill on the resharded weights "
+                                 "differs")
+        del model, before, want, got
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def kernel_entry(name, source, replaces, launches, t, err, library_ms):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -3173,8 +3664,12 @@ def main() -> int:
         from repro_torch.launch.train import quip_batch_stream, train_loop
         from repro_torch.models import (LM, decode_step, init_caches,
                                         init_params, prefill)
+        from repro_torch.models import attention as attn_mod
         from repro_torch.models import moe as moe_mod
         from repro_torch.models.transformer import layer_specs
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.runtime.elastic import place_state, reshard_state
+        from repro_torch.sharding.axes import distribute, param_specs
         from repro_torch.analysis import lint
         from repro_torch.optim import clip_by_global_norm
         from repro_torch.checkpoint import (restore_reference_checkpoint,
@@ -3190,7 +3685,13 @@ def main() -> int:
                                prefill=prefill, decode_step=decode_step,
                                init_caches=init_caches,
                                serve_batch=serve_batch, LM=LM, moe=moe_mod,
-                               layer_specs=layer_specs, kops=kops, kref=kref)
+                               attn=attn_mod, layer_specs=layer_specs,
+                               kops=kops, kref=kref)
+    sh = types.SimpleNamespace(make_host_mesh=make_host_mesh,
+                               place_state=place_state,
+                               reshard_state=reshard_state,
+                               distribute=distribute,
+                               param_specs=param_specs)
     tr = types.SimpleNamespace(
         get_arch=get_arch, init_params=init_params,
         quip_batch_stream=quip_batch_stream, train_loop=train_loop,
@@ -3532,6 +4033,24 @@ def main() -> int:
                   f"{t['library_ms']:.4f} ms", flush=True)
     print(f"   slice 12: {time.perf_counter() - t_s12:.1f}s for its five "
           f"phases", flush=True)
+    t_s13 = time.perf_counter()
+    with phase(f"slice 13: {DSV3_ARCH} float32 at full width, "
+               f"{DSV3_F32_LAYERS} dense layers: card == CPU, decode == "
+               f"prefill"):
+        dsv3_counts(lm)
+        dsv3_f32_card_vs_cpu(dev, lm)
+    with phase(f"slice 13: one MLA layer float32 at full width, 1 x "
+               f"{MLA_SEQ}: chunked == materialised, decode == prefill"):
+        mla_layer_f32(dev, lm)
+    with phase(f"slice 13: {DSV3_ARCH} bfloat16 at full width, "
+               f"{DSV3_BF16_LAYERS} layers: prefill, routing, profile, the "
+               f"bf16 MLA gate, serve_batch"):
+        dsv3_run = dsv3_bf16_run(dev, lm)
+    with phase("slice 13: the sharding layer on one rank over NCCL: "
+               "param_specs(serving=True), reshard_state, bit for bit"):
+        reshard_on_nccl(dev, lm, sh)
+    print(f"   slice 13: {time.perf_counter() - t_s13:.1f}s for its four "
+          f"phases", flush=True)
     print(f"   slice 1 launches: wifi {s1_wifi}, cdc {s1_cdc}, cdc with k=33 "
           f"{s1_cdc_k33}")
     print(f"   slice 2 launches: wifi {s2_wifi}, cdc {s2_cdc}")
@@ -3560,6 +4079,13 @@ def main() -> int:
         print(f"   slice 12: {name} serve_batch {SERVE} "
               f"{run['serve']['tok_per_s']:.1f} tok/s (decode "
               f"{run['serve']['decode_s']:.3f}s)")
+    print(f"   slice 13: {DSV3_ARCH} ({DSV3_BF16_LAYERS} layers) bf16 "
+          f"prefill {LM_BATCH} x {LM_SEQ} {dsv3_run['prefill_s']:.4f}s, peak "
+          f"{dsv3_run['peak'] / 1e9:.2f} GB; serve_batch {SERVE} "
+          f"{dsv3_run['serve']['tok_per_s']:.1f} tok/s (decode "
+          f"{dsv3_run['serve']['decode_s']:.3f}s); MLA gate ratio "
+          f"{dsv3_run['gate']['worst']:.3f}, planted "
+          f"{dsv3_run['gate']['planted']:.3f}")
     print(f"total {time.perf_counter() - t_start:.1f}s", flush=True)
 
     csrc = "src/repro_torch/csrc/"

@@ -11,10 +11,11 @@ and prints one line: the median host time of a ``decode_step`` at batch
 qwen2.5-3b and mamba2-370m in bf16, and of a bf16 AdamW train step of
 qwen2.5-3b at 8 x 128 tokens (10 steps after 3), random weights.
 
-    python3 examples/lm_host_ab_torch.py --interleave SRC SRC [...]
+    python3 examples/lm_host_ab_torch.py --interleave [--arch NAME] SRC SRC [...]
 
 loads every tree's package into one process (each import made afresh)
-and times qwen2.5-3b's bf16 decode step at batch 4 in rounds: each round
+and times an arch's bf16 decode step (qwen2.5-3b unless ``--arch``
+names another) at batch 4 in rounds: each round
 runs 32 steps past a 128-token prompt on every tree in turn, the order
 reversed every other round, and prints each round's medians and the
 median of all.  One process and one card hold the host's state alike for
@@ -164,7 +165,10 @@ def main() -> int:
                           text=True).stdout.strip()
     print(card, flush=True)
     if sys.argv[1:2] == ["--interleave"]:
-        interleave(sys.argv[2:])
+        if sys.argv[2:3] == ["--arch"]:
+            interleave(sys.argv[4:], arch=sys.argv[3])
+        else:
+            interleave(sys.argv[2:])
         return 0
     for src in sys.argv[1:] or [str(ROOT / "src")]:
         done = subprocess.run([sys.executable, __file__, "--one", src])

@@ -37,6 +37,7 @@ from repro_torch.models.transformer import (
     layer_specs,
     shared_modules,
 )
+from repro_torch.sharding import act
 
 __all__ = [
     "LM", "decode_step", "init_caches", "init_params", "loss_fn", "prefill",
@@ -120,16 +121,18 @@ def _backbone(model: LM, cfg: ArchConfig, x, positions, causal: bool,
 
 def _logits(model: LM, cfg: ArchConfig, x) -> torch.Tensor:
     head = model.embed.T if cfg.tie_embeddings else model.lm_head
-    return softcap((x @ head).float(), cfg.logit_softcap)
+    return softcap(act.constrain(x @ head, "logits").float(),
+                   cfg.logit_softcap)
 
 
 def _embed_inputs(model: LM, cfg: ArchConfig,
                   batch: Dict[str, Any]) -> torch.Tensor:
     if uses_embeds(cfg):
-        return batch["embeds"].to(model.embed.dtype)
+        return act.constrain(batch["embeds"].to(model.embed.dtype), "btd")
     # a gather whose gradient sums each row's entries in a fixed order (an
     # indexed read's gradient adds them with atomics on the CPU)
-    return F.embedding(batch["tokens"].long(), model.embed)
+    return act.constrain(F.embedding(batch["tokens"].long(), model.embed),
+                         "btd")
 
 
 def loss_fn(model: LM, cfg: ArchConfig, batch: Dict[str, Any],

@@ -17,7 +17,10 @@ the lowest expert as with ``jax.lax.top_k`` (``torch.topk`` promises no
 order); the queue positions are an integer cumsum (the reference's float32
 cumsum of one-hots is exact at these counts); a token count that is not a
 multiple of the group size raises ``ValueError`` (the reference's reshape
-raises); the sharding ``constrain`` calls are left out.
+raises).  The reference's sharding ``constrain`` calls stand where they
+stand there (``sharding.act.constrain``, a no-op without an active mesh):
+its einsum route's inlined expert FFN is :func:`_expert_ffn` here, with
+the same calls.
 
 At decode a call holds ``B`` tokens, so ``C`` is ``max(int(B·k·cf/E), 1)``
 and tokens may be dropped that a prefill of the same sequence keeps: the
@@ -34,6 +37,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import MLP, dense_init
+from repro_torch.sharding import act
 
 __all__ = ["GROUP_SIZE", "MoE", "Routing", "groups", "moe_apply", "route",
            "router_probs"]
@@ -138,9 +142,10 @@ def _act(cfg: ArchConfig, h: torch.Tensor, gate) -> torch.Tensor:
 
 def _expert_ffn(p: MoE, cfg: ArchConfig, xin: torch.Tensor) -> torch.Tensor:
     """xin: (G, E, C, d) → (G, E, C, d) through each expert's FFN."""
-    h = torch.einsum("gecd,edf->gecf", xin, p.wi)
-    h = _act(cfg, h, lambda: torch.einsum("gecd,edf->gecf", xin, p.wg))
-    return torch.einsum("gecf,efd->gecd", h, p.wo)
+    h = act.constrain(torch.einsum("gecd,edf->gecf", xin, p.wi), "ged")
+    h = _act(cfg, h, lambda: act.constrain(
+        torch.einsum("gecd,edf->gecf", xin, p.wg), "ged"))
+    return act.constrain(torch.einsum("gecf,efd->gecd", h, p.wo), "ged")
 
 
 def _einsum_moe(p: MoE, cfg: ArchConfig, tokens: torch.Tensor,
@@ -158,10 +163,13 @@ def _einsum_moe(p: MoE, cfg: ArchConfig, tokens: torch.Tensor,
     # has one choice at most, so its gate is taken, not summed
     gate = torch.einsum("gsk,gske->gse", r.gate_vals.to(ddt), onehot)
     combine = dispatch * gate[..., None]
-    xin = torch.einsum("gsec,gsd->gecd", dispatch.to(tokens.dtype), tokens)
+    xin = act.constrain(torch.einsum("gsec,gsd->gecd",
+                                     dispatch.to(tokens.dtype), tokens),
+                        "ged")
     expert_out = _expert_ffn(p, cfg, xin)
-    return torch.einsum("gsec,gecd->gsd", combine.to(tokens.dtype),
-                        expert_out)
+    return act.constrain(torch.einsum("gsec,gecd->gsd",
+                                      combine.to(tokens.dtype), expert_out),
+                         "gsd")
 
 
 def _scatter_moe(p: MoE, cfg: ArchConfig, tokens: torch.Tensor,
@@ -184,7 +192,9 @@ def _scatter_moe(p: MoE, cfg: ArchConfig, tokens: torch.Tensor,
     idx[rows, flat_e, flat_slot] = flat_tok
     idx = idx[:, :, :cap]
     tok_pad = torch.cat([tokens, tokens.new_zeros((g, 1, d))], dim=1)
-    xin = tok_pad[torch.arange(g, device=tokens.device)[:, None, None], idx]
+    xin = act.constrain(
+        tok_pad[torch.arange(g, device=tokens.device)[:, None, None], idx],
+        "ged")
     expert_out = _expert_ffn(p, cfg, xin)  # (G, E, C, d)
     flat_out = expert_out[rows, flat_e, torch.clamp(flat_slot, max=cap - 1)]
     w = (r.gate_vals * r.keep).reshape(g, -1, 1).to(tokens.dtype)

@@ -6,9 +6,9 @@ The reference stacks each segment's blocks into arrays with a leading
 segments (:class:`SegmentSpec`) still describe which kind each layer is,
 so local/global patterns follow the reference layer for layer.
 
-Dense attention, SSM (mamba2), MoE (``models/moe.py``) and weight-shared
-attention blocks are ported; MLA raises ``NotImplementedError`` (ROADMAP
-Queue 1).  A weight-shared block (zamba2's shared attention + MLP) keeps
+Dense attention (GQA, or MLA for ``cfg.mla``), SSM (mamba2), MoE
+(``models/moe.py``) and weight-shared attention blocks are ported.  A
+weight-shared block (zamba2's shared attention + MLP) keeps
 its norms per layer, as the reference does; its ``mixer`` and ``mlp`` are
 held once per segment and pattern position (:func:`shared_modules`, the
 reference's ``segment_params(...)["shared"]``) and every layer at that
@@ -34,12 +34,11 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import MLP, RMSNorm
+from repro_torch.sharding import act
 
 __all__ = ["Block", "BlockSpec", "SegmentSpec", "SharedBlock",
            "build_segments", "decode_segments", "forward_segments",
            "init_segment_caches", "layer_specs", "shared_modules"]
-
-_TODO = "ROADMAP Queue 1: the LM substrate's {} blocks are not ported yet"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,11 +94,6 @@ def layer_specs(segs: List[SegmentSpec]) -> List[BlockSpec]:
             for spec in seg.pattern]
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.mla:
-        raise NotImplementedError(_TODO.format("MLA"))
-
-
 def _shares_weights(cfg: ArchConfig, spec: BlockSpec) -> bool:
     return cfg.shared_attn and spec.kind != "ssm"
 
@@ -111,7 +105,7 @@ class SharedBlock(nn.Module):
     def __init__(self, cfg: ArchConfig, spec: BlockSpec, *, device=None,
                  dtype=torch.float32):
         super().__init__()
-        self.mixer = attn.GQA(cfg, device=device, dtype=dtype)
+        self.mixer = _attention(cfg, device, dtype)
         self.mlp = _mlp(cfg, spec, device, dtype) if spec.mlp else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -124,6 +118,12 @@ def _reset(block: nn.Module, generator: torch.Generator) -> None:
             part.reset_parameters(generator)
 
 
+def _attention(cfg: ArchConfig, device, dtype) -> nn.Module:
+    if cfg.mla:
+        return attn.MLA(cfg, device=device, dtype=dtype)
+    return attn.GQA(cfg, device=device, dtype=dtype)
+
+
 def _mlp(cfg: ArchConfig, spec: BlockSpec, device, dtype) -> nn.Module:
     if spec.moe:
         return moe_mod.MoE(cfg, device=device, dtype=dtype)
@@ -134,8 +134,8 @@ def _mlp(cfg: ArchConfig, spec: BlockSpec, device, dtype) -> nn.Module:
 
 
 class Block(nn.Module):
-    """One block: ``ln1``, the ``mixer`` (GQA, or the SSD block for
-    ``kind == "ssm"``), and with an MLP ``ln2`` and ``mlp`` (an
+    """One block: ``ln1``, the ``mixer`` (GQA, MLA for ``cfg.mla``, or the
+    SSD block for ``kind == "ssm"``), and with an MLP ``ln2`` and ``mlp`` (an
     :class:`~repro_torch.models.moe.MoE` for ``spec.moe``).  A block that
     shares its weights (``cfg.shared_attn``, not ``ssm``) holds its norms
     alone: ``mixer`` and ``mlp`` are ``None`` and come from its segment's
@@ -144,7 +144,6 @@ class Block(nn.Module):
     def __init__(self, cfg: ArchConfig, spec: BlockSpec, *, device=None,
                  dtype=torch.float32):
         super().__init__()
-        _check_ported(cfg)
         d = cfg.d_model
         shared = _shares_weights(cfg, spec)
         self.ln1 = RMSNorm(d, cfg.norm_eps, device=device, dtype=dtype)
@@ -152,7 +151,7 @@ class Block(nn.Module):
         if spec.kind == "ssm":
             self.mixer = mamba.SSM(cfg, device=device, dtype=dtype)
         elif not shared:
-            self.mixer = attn.GQA(cfg, device=device, dtype=dtype)
+            self.mixer = _attention(cfg, device, dtype)
         self.ln2 = self.mlp = None
         if spec.mlp:
             self.ln2 = RMSNorm(d, cfg.norm_eps, device=device, dtype=dtype)
@@ -210,9 +209,13 @@ def _apply_mlp(mlp: nn.Module, cfg: ArchConfig, spec: BlockSpec,
 def _apply_block(layer, cfg: ArchConfig, x, positions,
                  causal: bool) -> torch.Tensor:
     p, spec, mixer, mlp = layer
+    x = act.constrain(x, "btd")
     h = p.ln1(x)
     if spec.kind == "ssm":
         x = x + mamba.ssm_apply(mixer, cfg, h)
+    elif cfg.mla:
+        x = x + attn.mla_apply(mixer, cfg, h, positions,
+                               local=spec.kind == "local", causal=causal)
     else:
         x = x + attn.gqa_apply(mixer, cfg, h, positions,
                                local=spec.kind == "local", causal=causal)
@@ -276,8 +279,8 @@ def init_segment_caches(cfg: ArchConfig, segs: List[SegmentSpec],
                         batch: int, max_len: int, dtype,
                         device=None) -> List[Any]:
     """One zero cache per layer, in layer order: a (2, B, T, KV, D) K/V
-    tensor for an attention layer, an SSM layer's ``{state, conv}``."""
-    _check_ported(cfg)
+    tensor for an attention layer (for MLA its (B, T, kv_lora + rope)
+    latent and rotary-key cache), an SSM layer's ``{state, conv}``."""
     caches = []
     for spec in layer_specs(segs):
         if spec.kind == "ssm":
@@ -302,6 +305,9 @@ def decode_segments(blocks: nn.ModuleList, caches: List[Any],
         h = p.ln1(x)
         if spec.kind == "ssm":
             mixed, _ = mamba.ssm_decode(mixer, cfg, h, cache)
+        elif cfg.mla:
+            mixed, _ = attn.mla_decode(mixer, cfg, h, cache, pos,
+                                       local=spec.kind == "local")
         else:
             mixed, _ = attn.gqa_decode(mixer, cfg, h, cache, pos,
                                        local=spec.kind == "local")

@@ -154,15 +154,6 @@ def test_converter_rejects_a_mismatch():
                               device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b"])
-def test_unported_blocks_raise(arch):
-    cfg = get_arch(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_caches(cfg, 1, 4, device="cpu")
-
-
 # --------------------------------------------------------------------------- #
 # model twins
 # --------------------------------------------------------------------------- #

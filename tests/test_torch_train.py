@@ -47,7 +47,7 @@ DENSE = ["qwen2.5-3b", "qwen3-8b", "gemma-7b", "gemma2-27b",
          "hubert-xlarge", "pixtral-12b"]
 SSM = ["mamba2-370m"]
 MOE_HYBRID = ["moonshot-v1-16b-a3b", "zamba2-1.2b"]
-UNPORTED = ["deepseek-v3-671b"]
+MLA = ["deepseek-v3-671b"]
 HPARAMS = dict(peak_lr=1e-4, warmup=1, total_steps=10)
 
 
@@ -340,7 +340,7 @@ def test_abstract_train_state_matches_eval_shape(arch):
 
 
 def test_optimizer_for_follows_the_reference():
-    for arch in DENSE + SSM + MOE_HYBRID + UNPORTED:
+    for arch in DENSE + SSM + MOE_HYBRID + MLA:
         assert S.optimizer_for(get_arch(arch)) == \
             RS.optimizer_for(jax_get_arch(arch))
     assert S.optimizer_for(get_arch("deepseek-v3-671b")) == "adafactor"
@@ -362,15 +362,6 @@ def test_cuda_attention_has_no_backward():
     assert all(torch.equal(p, before[n]) for n, p in model.named_parameters())
     with torch.inference_mode():
         assert prefill(model, cfg, batch).shape == (2, cfg.vocab)
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_blocks_raise(arch):
-    cfg = get_arch(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        S.abstract_train_state(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_loop(cfg, steps=1, batch=2, seq=8, device="cpu")
 
 
 # --------------------------------------------------------------------------- #
