@@ -170,6 +170,19 @@ tensor and the prefill on the resharded weights equal to the originals
 bit for bit.  On a (1, 1) mesh every placement is a copy: the phase shows
 that NCCL starts and that the placement walk round-trips, no split.
 
+Slice 14 is the dry run (``launch/{roofline,dryrun,hillclimb}.py``), which
+counts a step's FLOPs, bytes, collectives and memory per device on a fake
+world of meta shards.  Its phase here, "dry run vs card", traces two cells
+on a (1, 1) fake world and then runs each for real on the card under the
+same counter: qwen2.5-3b bf16 prefill 2 x 4096 with ``attn_impl="cuda"``
+(slice 4's) and the qwen2.5-3b train step at batch 8 x 128 (AdamW,
+``remat="full"``, slice 10's).  The fake count of FLOPs must equal the
+card's exactly; the card's median seconds must be no lower than the
+roofline bound (the largest of the FLOP, byte and collective terms at the
+H100's published peaks); the estimated peak must be within 10% of
+``max_memory_allocated`` over the step.  The flash kernel must still
+launch in every layer of the prefill.
+
 Each configuration runs once through the kernels and once through the plain
 versions, whose answers and imputation counts must agree; slice 2's wifi
 answers must also equal slice 1's.  The last phases check the paper's
@@ -3620,6 +3633,119 @@ def reshard_on_nccl(dev, lm, sh) -> None:
     torch.cuda.empty_cache()
 
 
+#: the dry run's cells held against the card: (label, arch overrides,
+#: shape, remat); slice 4's prefill through the kernel and slice 10's step
+DRY_CELLS = (("prefill", {"attn_impl": "cuda"},
+              ("card_prefill", LM_SEQ, LM_BATCH, "prefill"), "none"),
+             ("train", {}, ("card_train", TRAIN["seq"], TRAIN["batch"],
+                            "train"), "full"))
+DRY_MEMORY_RTOL = 0.10  # the estimated peak against max_memory_allocated
+
+
+def dry_args(lm, tr, cfg, shape, remat: str, dev, seed: int):
+    """The cell's step and its arguments on the card: weights from
+    ``seed``, int32 tokens and labels of the cell's shape."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    model = lm.init_params(cfg, g, dev)
+    size = (shape.global_batch, shape.seq_len)
+    batch = {k: torch.randint(0, cfg.vocab, size, generator=g, device=dev,
+                              dtype=torch.int32)
+             for k in ("tokens", "labels")}  # the keys of batch_spec
+    if shape.kind == "train":
+        return (tr.build_train_step(cfg, remat=remat),
+                (tr.init_train_state(cfg, model), batch))
+    return tr.build_serve_step(cfg, "prefill"), (model, batch)
+
+
+def dryrun_vs_card(dev, lm, tr, dr, fa, card: str) -> dict:
+    """Each of :data:`DRY_CELLS` traced on a (1, 1) fake world, then run on
+    the card under the same counter (the phase's gates: the module
+    docstring).  Returns the flash kernel's launches in the counted
+    prefill."""
+    out = {}
+    for label, overrides, shape_args, remat in DRY_CELLS:
+        cfg = dataclasses.replace(lm.get_arch(LM_ARCH), **overrides)
+        shape = dr.ShapeConfig(*shape_args)
+        t0 = time.perf_counter()
+        with dr.fake_world((1, 1), ("data", "model")) as mesh:
+            fake = dr.trace_cell(cfg, shape, mesh, remat=remat)
+        trace_s = time.perf_counter() - t0
+        report = dr.RooflineReport(
+            arch=LM_ARCH, shape=shape.name, mesh="1x1", chips=1,
+            hlo_flops=fake["flops"], hlo_bytes=fake["bytes_accessed"],
+            collective_bytes=fake["collective_bytes"],
+            per_kind=fake["collectives"],
+            model_flops=dr.model_flops(cfg, shape),
+            bytes_per_device=fake["memory"]["peak_bytes"])
+        assert_card_free(f"the {label} cell")
+        fn, args = dry_args(lm, tr, cfg, shape, remat, dev, seed=14)
+        grad = shape.kind == "train"
+        with torch.set_grad_enabled(grad):
+            fn(*args)  # warm: the kernel library, cuBLAS, the allocator
+        torch.cuda.synchronize()
+        gc.collect()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = 0
+        real = dr.count_step(fn, args, None, grad=grad)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches = fa.launches
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with torch.set_grad_enabled(grad):
+                fn(*args)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        sec = float(np.median(times))
+        est = fake["memory"]["peak_bytes"]
+        gap = (est - peak) / peak
+        print(f"   {label} ({LM_ARCH}, {shape.global_batch} x "
+              f"{shape.seq_len}, {cfg.dtype}, attn_impl={cfg.attn_impl}, "
+              f"remat={remat}): fake trace {trace_s:.1f}s, "
+              f"{fake['ops']} ops; FLOPs fake {fake['flops']:,} card "
+              f"{real['flops']:,}; bytes accessed fake "
+              f"{fake['bytes_accessed']:,} card {real['bytes_accessed']:,}",
+              flush=True)
+        print(f"   {label}: H100 terms compute {report.t_compute * 1e3:.2f} "
+              f"ms, memory {report.t_memory * 1e3:.2f} ms, collective "
+              f"{report.t_collective * 1e3:.2f} ms -> bound "
+              f"{report.t_bound * 1e3:.2f} ms ({report.bottleneck}); card "
+              f"median {sec * 1e3:.2f} ms of {[round(t, 4) for t in times]}; "
+              f"useful {report.useful_ratio:.3f}, roofline_fraction "
+              f"{report.roofline_fraction:.4f}, useful FLOPs / card time / "
+              f"peak {report.model_flops / sec / dr.PEAK_FLOPS:.4f} "
+              f"({card})", flush=True)
+        print(f"   {label}: memory estimated peak {est / 1e9:.3f} GB "
+              f"(arguments {fake['memory']['argument_bytes'] / 1e9:.3f}, "
+              f"temp {fake['memory']['temp_bytes'] / 1e9:.3f}, output "
+              f"{fake['memory']['output_bytes'] / 1e9:.3f}); card "
+              f"max_memory_allocated {peak / 1e9:.3f} GB ({held / 1e9:.3f} "
+              f"GB held before the step; the counter's own tracking on the "
+              f"card {real['memory']['peak_bytes'] / 1e9:.3f} GB); gap "
+              f"{gap:+.4f}; flash launches {launches}", flush=True)
+        if fake["flops"] != real["flops"]:
+            raise AssertionError(f"{label}: the fake trace counts "
+                                 f"{fake['flops']} FLOPs, the card "
+                                 f"{real['flops']}")
+        if sec < report.t_bound:
+            raise AssertionError(f"{label}: {sec:.6f}s on the card is below "
+                                 f"the roofline bound {report.t_bound:.6f}s")
+        if abs(gap) > DRY_MEMORY_RTOL:
+            raise AssertionError(f"{label}: estimated peak {est} is "
+                                 f"{gap:+.1%} off the card's {peak}")
+        if cfg.attn_impl == "cuda" and launches < cfg.n_layers:
+            raise AssertionError(f"{label}: {launches} flash launches for "
+                                 f"{cfg.n_layers} layers")
+        out[label] = launches
+        del fn, args
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out["prefill"]
+
+
 def kernel_entry(name, source, replaces, launches, t, err, library_ms):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -3630,8 +3756,10 @@ def kernel_entry(name, source, replaces, launches, t, err, library_ms):
 
 def main() -> int:
     kernels_only = sys.argv[1:] == ["--kernels"]
-    if sys.argv[1:] and not kernels_only:
-        print("usage: python3 chip_smoke.py [--kernels]", file=sys.stderr)
+    dryrun_only = sys.argv[1:] == ["--dryrun"]
+    if sys.argv[1:] and not (kernels_only or dryrun_only):
+        print("usage: python3 chip_smoke.py [--kernels | --dryrun]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs a "
@@ -3675,6 +3803,9 @@ def main() -> int:
         from repro_torch.checkpoint import (restore_reference_checkpoint,
                                             save_reference_checkpoint,
                                             tree_leaves)
+        from repro_torch.configs import ShapeConfig
+        from repro_torch.launch import dryrun as dryrun_mod
+        from repro_torch.launch import roofline as roofline_mod
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script ({exc})",
               file=sys.stderr)
@@ -3697,12 +3828,19 @@ def main() -> int:
         quip_batch_stream=quip_batch_stream, train_loop=train_loop,
         abstract_train_state=train_steps.abstract_train_state,
         build_train_step=train_steps.build_train_step,
+        build_serve_step=train_steps.build_serve_step,
         loss_and_grads=train_steps.loss_and_grads,
         clip_by_global_norm=clip_by_global_norm,
         init_train_state=train_steps.init_train_state,
         save_reference_checkpoint=save_reference_checkpoint,
         restore_reference_checkpoint=restore_reference_checkpoint,
         tree_leaves=tree_leaves)
+    dr = types.SimpleNamespace(
+        fake_world=dryrun_mod.fake_world, trace_cell=dryrun_mod.trace_cell,
+        count_step=dryrun_mod.count_step, ShapeConfig=ShapeConfig,
+        RooflineReport=roofline_mod.RooflineReport,
+        model_flops=roofline_mod.model_flops,
+        PEAK_FLOPS=roofline_mod.PEAK_FLOPS)
     dev = torch.device("cuda")
     card = card_line()
     t_start = time.perf_counter()
@@ -3722,6 +3860,11 @@ def main() -> int:
             if line.startswith(("== nvcc", "built", "reused")) or \
                     "registers" in line or "spill" in line:
                 print("   " + line.strip())
+    if dryrun_only:  # slice 14's phase alone, for a short chip call
+        with phase("dry run vs card (slice 14)"):
+            dryrun_vs_card(dev, lm, tr, dr, fa, card)
+        print(card)
+        return 0
     with phase("data"):
         wifi, _ = wifi_dataset(np.random.default_rng(0), **WIFI_FULL)
         cdc, _ = cdc_dataset(**CDC_CYCLE)
@@ -4051,6 +4194,12 @@ def main() -> int:
         reshard_on_nccl(dev, lm, sh)
     print(f"   slice 13: {time.perf_counter() - t_s13:.1f}s for its four "
           f"phases", flush=True)
+    t_s14 = time.perf_counter()
+    with phase(f"dry run vs card (slice 14): {LM_ARCH} prefill and train "
+               f"step traced on a (1, 1) fake world, then counted on the "
+               f"card"):
+        dry_launches = dryrun_vs_card(dev, lm, tr, dr, fa, card)
+    print(f"   slice 14: {time.perf_counter() - t_s14:.1f}s", flush=True)
     print(f"   slice 1 launches: wifi {s1_wifi}, cdc {s1_cdc}, cdc with k=33 "
           f"{s1_cdc_k33}")
     print(f"   slice 2 launches: wifi {s2_wifi}, cdc {s2_cdc}")
@@ -4128,7 +4277,8 @@ def main() -> int:
                      seg_sum_t["library_ms"]),
         kernel_entry("flash_attention", csrc + "flash_attention_tc.cu",
                      "src/repro/kernels/flash_attention.py:96",
-                     lm_launches + hyb_run["launches"] + moe_run["launches"],
+                     lm_launches + hyb_run["launches"] + moe_run["launches"]
+                     + dry_launches,
                      attn_t, max([attn_check_err[torch.bfloat16],
                                   attn_t["err"]]
                                  + [t["err"] for t in mha_t]

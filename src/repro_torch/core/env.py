@@ -134,8 +134,8 @@ ENV_REGISTRY: Dict[str, EnvKnob] = _registry(
     EnvKnob("QUIPT_DIST_IMPL", "choice", "auto (cuda on a CUDA tensor, "
             "ref on a CPU tensor)", "masked KNN partial-distance dispatch",
             choices=("numpy", "ref", "cuda"), owner="kernels/ops.py"),
-    EnvKnob("QUIPT_ATTN_IMPL", "choice", "auto (cuda on a CUDA tensor, "
-            "ref on a CPU tensor)",
+    EnvKnob("QUIPT_ATTN_IMPL", "choice", "cuda (the kernel's op, which "
+            "runs the plain version on a CPU tensor)",
             "attention dispatch of the LM's attn_impl='cuda' path: the plain "
             "materialised softmax or the flash-attention kernel",
             choices=("ref", "cuda"), owner="kernels/ops.py"),

@@ -10,14 +10,20 @@ kernels, picked by ``route`` on (dtype, head width):
   bfloat16 at the other head widths: ``csrc/flash_attention.cu``.
 
 Both replace the reference package's Pallas kernel ``flash_attention_pallas``
-(``repro/kernels/flash_attention.py``).  A CUDA tensor launches the routed
-kernel on the current stream, and a failed launch raises; a CPU tensor takes
-the plain torch version (``ref.attention_ref``), since the kernels exist
-only on the card.
+(``repro/kernels/flash_attention.py``).  The wrapper is the custom op
+``quipt::flash_attention``, so that the dispatcher picks the route by the
+tensors' device, in this one place: a CUDA tensor launches the routed kernel
+on the current stream, and a failed launch raises; a CPU tensor takes the
+plain torch version (``ref.attention_ref``), since the kernels exist only on
+the card; a meta or fake tensor gets its output's shape and dtype, so that a
+dry run traces the op.  Its FLOP formula (``torch.utils.flop_counter``)
+counts the work the function needs, 4·B·H·D per kept query-key pair, and
+not the blocks the kernel happens to skip.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -27,7 +33,8 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.build import count as _count
 
 __all__ = ["MAX_HEAD_DIM", "ROUTES", "TENSOR_CORE_HEAD_DIMS",
-           "flash_attention", "launches", "route", "route_launches"]
+           "flash_attention", "flops", "kept_pairs", "launches",
+           "register_sharding_rule", "route", "route_launches"]
 
 #: kernel launches since the counter was last set to 0 (both kernels)
 launches = 0
@@ -72,9 +79,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention takes contiguous q, k and v")
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k and v lie on other devices")
-    if q.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"flash_attention runs on cuda or cpu, not "
-                         f"{q.device}")
+    if q.device.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"flash_attention runs on cuda or cpu (or traces "
+                         f"on meta), not {q.device}")
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
@@ -93,15 +100,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kept iff ``kpos <= qpos`` (causal) and ``kpos > qpos - window``
     (windowed); ``scale`` defaults to ``1/sqrt(D)``."""
     _check(q, k, v, window)
-    if q.device.type == "cpu":
-        return _ref.attention_ref(q, k, v, causal=causal, window=window,
-                                  scale=scale)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[3])
+    return torch.ops.quipt.flash_attention(q, k, v, causal, window,
+                                           float(scale))
+
+
+@torch.library.custom_op("quipt::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def _kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: Optional[int], scale: float) -> torch.Tensor:
     b, s, h, d = q.shape
     if h > _GRID_MAX or b > _GRID_MAX:
         raise ValueError(f"flash_attention: at most {_GRID_MAX} heads and "
                          f"batch rows, got {h} and {b}")
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
@@ -125,3 +137,59 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _count(globals(), "launches")
     _count(route_launches, which)
     return out
+
+
+@_kernel.register_kernel("cpu")
+def _plain(q, k, v, causal, window, scale):
+    return _ref.attention_ref(q, k, v, causal=causal, window=window,
+                              scale=scale)
+
+
+@_kernel.register_fake
+def _shape(q, k, v, causal, window, scale):
+    return torch.empty_like(q)
+
+
+def kept_pairs(s: int, causal: bool, window: Optional[int]) -> int:
+    """The query-key pairs a length-``s`` sequence keeps: ``kpos <= qpos``
+    when causal, ``kpos > qpos - window`` when windowed."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2 if causal else s * s
+    if causal:  # min(q + 1, window) keys for query q
+        return window * (window + 1) // 2 + (s - window) * window
+    # s - max(0, q - window + 1) keys for query q
+    over = max(s - window, 0)
+    return s * s - over * (over + 1) // 2
+
+
+def flops(q_shape, causal: bool, window: Optional[int]) -> int:
+    """The function's FLOPs: Q·Kᵀ and P·V, 2·D each per kept pair, for
+    every row and head."""
+    b, s, h, d = q_shape
+    return 4 * b * h * d * kept_pairs(s, causal, window)
+
+
+def _register_flops() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.quipt.flash_attention)
+    def _formula(q_shape, k_shape, v_shape, causal, window, scale, *args,
+                 out_shape=None, **kwargs) -> int:
+        return flops(q_shape, causal, window)
+
+
+_register_flops()
+
+@functools.cache
+def register_sharding_rule() -> None:
+    """Tell DTensor how the op may be split: q, k, v and the output all
+    whole, or all split along the batch (each row's attention is its
+    own).  Called where DTensors reach the model (a dry run); once."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.quipt.flash_attention.default)
+    def _rule(q, k, v, causal, window, scale):
+        whole = ([Replicate()], [Replicate()] * 3 + [None] * 3)
+        rows = ([Shard(0)], [Shard(0)] * 3 + [None] * 3)
+        return [whole, rows]

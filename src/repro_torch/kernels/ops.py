@@ -18,9 +18,9 @@ executor's grouped aggregates (``QUIPT_SEGMENT_IMPL``), and the engine's
 join spine (``core.triggers.resolve_join_impl``, the numpy sort-join).
 Every ported kernel has its ``cuda`` member here, the segment reduction
 included.  The flash attention has no numpy member: its knob
-(``QUIPT_ATTN_IMPL``) takes ``ref`` or ``cuda``, by default ``cuda`` on a
-CUDA tensor and ``ref`` on a CPU tensor.  Nothing falls back from the
-kernel to the plain version on the card.
+(``QUIPT_ATTN_IMPL``) takes ``ref`` or ``cuda``, by default ``cuda``: the
+kernel's op, whose dispatcher sends a CPU tensor to the plain version.
+Nothing falls back from the kernel to the plain version on the card.
 """
 
 from __future__ import annotations
@@ -473,14 +473,15 @@ _ATTN_IMPLS = ("ref", "cuda")
 
 
 def resolve_attn_impl(impl: Optional[str] = None,
-                      device: torch.device = torch.device("cpu")) -> str:
+                      device: Optional[torch.device] = None) -> str:
     """Flash-attention dispatch: explicit ``impl`` > ``QUIPT_ATTN_IMPL`` >
-    ``cuda`` on a CUDA device, ``ref`` on the CPU.  There is no numpy
-    member."""
+    ``cuda``, on every device: the kernel's op decides the CPU route itself
+    (its plain version), so that a dry run on the CPU traces the op the
+    card runs.  ``device`` is taken for the resolvers' common signature.
+    There is no numpy member."""
+    del device
     if impl is None:
-        impl = env_choice("QUIPT_ATTN_IMPL", _ATTN_IMPLS, "auto")
-        if impl == "auto":
-            return "cuda" if device.type == "cuda" else "ref"
+        impl = env_choice("QUIPT_ATTN_IMPL", _ATTN_IMPLS, "cuda")
     if impl not in _ATTN_IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}")
     return impl

@@ -1,5 +1,7 @@
 from repro_torch.models.model import (
     LM,
+    abstract_params,
+    batch_spec,
     decode_step,
     init_caches,
     init_params,
@@ -10,6 +12,8 @@ from repro_torch.models.model import (
 
 __all__ = [
     "LM",
+    "abstract_params",
+    "batch_spec",
     "decode_step",
     "init_caches",
     "init_params",

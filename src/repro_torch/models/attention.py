@@ -179,6 +179,31 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
                        device=device)
 
 
+def _write_at(cache: torch.Tensor, pos: torch.Tensor,
+              new: torch.Tensor) -> None:
+    """Write each row's new entry ``new[b, 0]`` into ``cache[b]`` (B, T,
+    ...) at time ``min(pos[b], T-1)``, in place: a scatter along T, which
+    a cache sharded over its batch and heads takes on each shard."""
+    at = torch.clamp(pos, max=cache.shape[1] - 1).long()
+    if _split_over_time(cache):
+        # each shard of T blends its own slice: the entry lands on one
+        when = torch.arange(cache.shape[1], device=cache.device) == at[:, None]
+        when = when.reshape(*when.shape, *([1] * (cache.dim() - 2)))
+        cache.copy_(torch.where(when, new, cache))
+        return
+    idx = at.reshape(-1, *([1] * (new.dim() - 1))).expand(new.shape)
+    cache.scatter_(1, idx, new)
+
+
+def _split_over_time(cache: torch.Tensor) -> bool:
+    """Whether ``cache`` is a DTensor sharded along its time dim (dim 1):
+    a batch-1 long context's cache, sequence-parallel over the data axes."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    return isinstance(cache, DTensor) and any(
+        isinstance(p, Shard) and p.dim == 1 for p in cache.placements)
+
+
 def gqa_decode(p: GQA, cfg: ArchConfig, x: torch.Tensor,
                cache: torch.Tensor, pos: torch.Tensor, local: bool
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -186,16 +211,13 @@ def gqa_decode(p: GQA, cfg: ArchConfig, x: torch.Tensor,
 
     The new K/V are written at ``min(pos, T-1)`` in place (the reference
     returns an updated copy); the cache is returned as well."""
-    b = x.shape[0]
     t = cache.shape[2]
     q, k, v = _project_qkv(p, cfg, x)
     cos, sin = rope(pos[:, None], cfg.resolved_head_dim, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    rows = torch.arange(b, device=x.device)
-    at = torch.clamp(pos, max=t - 1)
-    cache[0, rows, at] = k[:, 0]
-    cache[1, rows, at] = v[:, 0]
+    _write_at(cache[0], pos, k)
+    _write_at(cache[1], pos, v)
     kpos = torch.arange(t, device=x.device)[None, :]
     ok = kpos <= pos[:, None]
     if local and cfg.local_window is not None:
@@ -345,11 +367,9 @@ def mla_decode(p: MLA, cfg: ArchConfig, x: torch.Tensor,
     ``min(pos, T-1)`` in place; the materialised softmax reads the cache.
     Returns the output and the cache."""
     del local
-    b, t = x.shape[0], cache.shape[1]
+    t = cache.shape[1]
     q_nope, q_rope, latent, k_rope = mla_qkv(p, cfg, x, pos[:, None])
-    rows = torch.arange(b, device=x.device)
-    cache[rows, torch.clamp(pos, max=t - 1)] = torch.cat(
-        [latent, k_rope[:, :, 0, :]], dim=-1)[:, 0]
+    _write_at(cache, pos, torch.cat([latent, k_rope[:, :, 0, :]], dim=-1))
     kvr = cfg.kv_lora_rank
     kpos = torch.arange(t, device=x.device)[None, :]
     mask = torch.where(kpos <= pos[:, None], 0.0, -1e30).to(

@@ -71,10 +71,11 @@ def flash_attention(
         qb = qg[:, qi]  # (b, qc, kv, rep, d)
         q_lo = q_offset + qi * qc
         qpos = q_lo + qpos_base  # absolute
-        m = torch.full((b, kv, rep, qc), NEG, dtype=torch.float32, device=dev)
-        l = torch.zeros((b, kv, rep, qc), dtype=torch.float32, device=dev)
-        acc = torch.zeros((b, kv, rep, qc, dv), dtype=torch.float32,
-                          device=dev)
+        # the running max, sum and accumulator start at the first key
+        # block kept: the same values as starting from (-1e30, 0, 0), where
+        # alpha * 0 adds nothing, and no tensor made from q's shape alone
+        # (on DTensors it would be whole on every rank)
+        m = l = acc = None
         for kj in range(nk):
             if causal and kj * kc > q_lo + qc - 1:
                 continue  # block entirely above the diagonal
@@ -92,10 +93,9 @@ def flash_attention(
             if window is not None:
                 ok = ok & (kpos[None, :] > qpos[:, None] - window)
             logits = logits.masked_fill(~ok, NEG)
-            m2 = torch.maximum(m, logits.amax(-1))
+            m2 = logits.amax(-1) if m is None else torch.maximum(
+                m, logits.amax(-1))
             p = torch.exp(logits - m2[..., None])
-            alpha = torch.exp(m - m2)
-            l = alpha * l + p.sum(-1)
             if pv_bf16:
                 # bf16 inputs, exact products, float32 accumulation
                 pv = torch.einsum("bkrqc,bckd->bkrqd",
@@ -103,7 +103,12 @@ def flash_attention(
                                   vb.to(torch.bfloat16).float())
             else:
                 pv = torch.einsum("bkrqc,bckd->bkrqd", p, vb.float())
-            acc = alpha[..., None] * acc + pv
+            if m is None:
+                l, acc = p.sum(-1), pv
+            else:
+                alpha = torch.exp(m - m2)
+                l = alpha * l + p.sum(-1)
+                acc = alpha[..., None] * acc + pv
             m = m2
         out = acc / torch.clamp(l, min=1e-30)[..., None]
         blocks.append(out.to(q.dtype))  # (b, kv, rep, qc, dv)

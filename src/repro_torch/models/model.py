@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models.layers import RMSNorm, dense_init, softcap, torch_dtype
 from repro_torch.models.transformer import (
@@ -40,8 +40,8 @@ from repro_torch.models.transformer import (
 from repro_torch.sharding import act
 
 __all__ = [
-    "LM", "decode_step", "init_caches", "init_params", "loss_fn", "prefill",
-    "uses_embeds",
+    "LM", "abstract_params", "batch_spec", "decode_step", "init_caches",
+    "init_params", "loss_fn", "prefill", "uses_embeds",
 ]
 
 
@@ -109,6 +109,12 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     return model
 
 
+def abstract_params(cfg: ArchConfig) -> LM:
+    """The parameters' shapes and dtypes on the ``meta`` device: no memory
+    and no values (the reference's ``jax.eval_shape`` of the init)."""
+    return LM(cfg, device="meta")
+
+
 # --------------------------------------------------------------------------- #
 # forward
 # --------------------------------------------------------------------------- #
@@ -145,9 +151,19 @@ def loss_fn(model: LM, cfg: ArchConfig, batch: Dict[str, Any],
     x = _backbone(model, cfg, x, positions, not cfg.encoder_only, remat)
     logits = _logits(model, cfg, x)
     labels = batch["labels"].long()
-    lse = torch.logsumexp(logits, dim=-1)
-    label_logit = torch.gather(logits, -1,
-                               labels.clamp(min=0)[..., None])[..., 0]
+    # logsumexp from its parts: on vocab-sharded DTensor logits the max and
+    # the sum reduce across the shards, where torch.logsumexp would gather
+    # the logits whole
+    top = logits.detach().amax(-1, keepdim=True)
+    lse = torch.log(torch.exp(logits - top).sum(-1)) + top[..., 0]
+    # the label's logit as a masked sum over the vocabulary (exact: one
+    # term is not zero), with the vocabulary's index laid out as the
+    # logits are: on vocab-sharded DTensor logits a gather's gradient
+    # would be built whole on every rank
+    vocab = torch.zeros_like(logits, dtype=torch.int32) + torch.arange(
+        logits.shape[-1], dtype=torch.int32, device=logits.device)
+    hit = vocab == labels.clamp(min=0)[..., None]
+    label_logit = torch.where(hit, logits, 0.0).sum(-1)
     mask = (labels >= 0).float()
     nll = (lse - label_logit) * mask
     return nll.sum() / torch.clamp(mask.sum(), min=1.0)
@@ -187,3 +203,23 @@ def decode_step(model: LM, caches: List[Any], cfg: ArchConfig,
                                 pos, shared=model.shared)
     x = model.final_norm(x)
     return _logits(model, cfg, x)[:, 0], caches
+
+
+# --------------------------------------------------------------------------- #
+# input specs
+# --------------------------------------------------------------------------- #
+def batch_spec(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """``meta`` stand-ins for every model input of this cell, with the
+    reference's keys, shapes and dtypes: ``tokens`` (B, 1) and ``pos``
+    (B,) for decode; ``embeds`` (B, S, d_model) in the model's dtype and
+    ``labels`` where the family is fed embeddings; else ``tokens`` and
+    ``labels`` (B, S); integers are int32."""
+    b, s = shape.global_batch, shape.seq_len
+    meta = lambda size, dtype: torch.empty(size, dtype=dtype, device="meta")
+    i32 = torch.int32
+    if shape.kind == "decode":
+        return {"tokens": meta((b, 1), i32), "pos": meta((b,), i32)}
+    if uses_embeds(cfg):
+        return {"embeds": meta((b, s, cfg.d_model), torch_dtype(cfg.dtype)),
+                "labels": meta((b, s), i32)}
+    return {"tokens": meta((b, s), i32), "labels": meta((b, s), i32)}

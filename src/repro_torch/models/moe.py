@@ -187,8 +187,8 @@ def _scatter_moe(p: MoE, cfg: ArchConfig, tokens: torch.Tensor,
     rows = torch.arange(g, device=tokens.device)[:, None]
     # s_g pads an empty slot; kept (expert, slot) pairs are unique, so only
     # the discarded column cap takes several writes
-    idx = torch.full((g, e, cap + 1), s_g, dtype=torch.int64,
-                     device=tokens.device)
+    # made from the routing, so that on DTensors it is one too
+    idx = r.gate_idx.new_full((g, e, cap + 1), s_g, dtype=torch.int64)
     idx[rows, flat_e, flat_slot] = flat_tok
     idx = idx[:, :, :cap]
     tok_pad = torch.cat([tokens, tokens.new_zeros((g, 1, d))], dim=1)

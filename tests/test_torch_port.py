@@ -278,7 +278,9 @@ def test_impl_knob_defaults_follow_the_device(monkeypatch):
     assert kops.resolve_bloom_impl(None, cpu) == "ref"
     assert kops.resolve_bloom_impl(None, cuda) == "cuda"
     assert kops.resolve_dist_impl(None, cuda) == "cuda"
-    assert kops.resolve_attn_impl(None, cpu) == "ref"
+    # attention's default is its kernel's op on every device: the op sends
+    # a CPU tensor to the plain version itself
+    assert kops.resolve_attn_impl(None, cpu) == "cuda"
     assert kops.resolve_attn_impl(None, cuda) == "cuda"
     monkeypatch.setenv("QUIPT_DIST_IMPL", "numpy")
     assert kops.resolve_dist_impl(None, cuda) == "numpy"
