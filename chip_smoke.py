@@ -183,6 +183,33 @@ H100's published peaks); the estimated peak must be within 10% of
 ``max_memory_allocated`` over the step.  The flash kernel must still
 launch in every layer of the prefill.
 
+Slice 15 serves the five archs that had not run on the card, after slice
+13's phases and before the dry run, each at full width and depth in
+bfloat16 with random weights drawn on the card: gemma-7b (the
+tensor-core kernel at D 256), qwen3-8b (qk-norm; 32 query heads over 8
+KV heads), pixtral-12b (fed (B, S, 5120) ``embeds``, the VLM frontend's
+stub), hubert-xlarge (an encoder fed ``embeds``: non-causal attention at
+D 80, which runs the CUDA-core kernel in bfloat16 too) and gemma2-27b
+(local and global layers, attention and logit softcaps: its attention
+reaches no kernel, as in the reference; 54.45 GB drawn once under 1 GB is
+held on the card).  Each arch's ``num_params()`` must equal the
+reference's.  The four archs with the kernel: a float32 twin at 4 layers
+(2 x 4096, the kernel path == the plain path within 1e-3 of the largest
+logit, same argmax; decode over a 128-token prompt == its prefill for the
+decoders, pixtral's prefill fed the prompt's embedding rows), then the
+bf16 prefills held by ``bf16_gate`` (the kernel launched in every layer),
+timed, profiled, and for the decoders a profiled decode step and
+``serve_batch``.  gemma2-27b: a float32 twin at 4 layers, 1 x 6144 (past
+the local layers' 4,096-key window), its chunked path == the
+materialised softmax and decode == prefill; in bf16 the chunked and
+materialised prefills (no launch; the residual after the first attention
+layer and the logits' cosine gated), profile, decode step,
+``serve_batch``.  The kernel is checked against its plain version at the
+three new prefill calls and at head widths 80 and 96 on the grid, and
+timed at the three calls beside SDPA and its bound.
+``python3 chip_smoke.py --slice15`` runs the attention checks and slice
+15's phases alone.
+
 Each configuration runs once through the kernels and once through the plain
 versions, whose answers and imputation counts must agree; slice 2's wifi
 answers must also equal slice 1's.  The last phases check the paper's
@@ -1333,6 +1360,17 @@ ATTN_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (8e-3, 1e-3)}
 # slice 12's prefill calls: zamba2-1.2b (32 heads, 32 KV heads, D 64) and
 # moonshot-v1-16b-a3b (16 and 16, D 128), both multi-head (group size 1)
 MHA_CALLS = ((LM_BATCH, LM_SEQ, 32, 32, 64), (LM_BATCH, LM_SEQ, 16, 16, 128))
+# slice 15's prefill calls, (shape, causal): gemma-7b (D 256, multi-head),
+# qwen3-8b and pixtral-12b (32 heads over 8 KV heads, D 128) and
+# hubert-xlarge (D 80, an encoder: non-causal; the CUDA-core kernel in bf16
+# too, D 80 being no tensor-core width)
+S15_CALLS = (((LM_BATCH, LM_SEQ, 16, 16, 256), True),
+             ((LM_BATCH, LM_SEQ, 32, 8, 128), True),
+             ((LM_BATCH, LM_SEQ, 16, 16, 80), False))
+# head widths that are no power of two, on the grid: the CUDA-core kernel's
+# accumulator columns (ceil(D / 16) rounded up to a power of two) partly
+# unused
+ODD_HEAD_DIMS = (80, 96)
 MATMUL_NAMES = ("gemm", "cutlass", "xmma", "nvjet", "cublas", "wgmma")
 
 
@@ -1368,10 +1406,11 @@ def check_attention(dev, fa, kref) -> dict:
     """The kernels against their plain version on the reference tests' grid
     in float32 and bfloat16 (the CUDA-core kernel: head widths 8-32), on
     the same grid at the tensor-core kernel's head widths 64, 128 and 256
-    in bfloat16, at the slice's call in bfloat16 and float32 (64 key tiles,
-    no window), at a padded, windowed call in both, and at zamba2's and
-    moonshot's multi-head calls (``MHA_CALLS``) in both; returns the
-    largest |difference| by dtype."""
+    in bfloat16 and at head widths 80 and 96 (``ODD_HEAD_DIMS``) in both,
+    at the slice's call in bfloat16 and float32 (64 key tiles, no window),
+    at a padded, windowed call in both, at zamba2's and moonshot's
+    multi-head calls (``MHA_CALLS``) and at slice 15's calls
+    (``S15_CALLS``) in both; returns the largest |difference| by dtype."""
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for shape in ATTN_GRID:
         for causal, window in ATTN_MASKS:
@@ -1397,19 +1436,41 @@ def check_attention(dev, fa, kref) -> dict:
     err[torch.bfloat16] = max(err[torch.bfloat16], tc_err)
     print(f"   tensor-core flash_attention == plain on the grid at D 64, 128 "
           f"and 256 (bf16, 3 masks): max |diff| {tc_err:.3g}", flush=True)
-    for shape, dtype, window in (
-            ((LM_BATCH, LM_SEQ, 16, 2, 128), torch.bfloat16, None),
-            ((LM_BATCH, LM_SEQ, 16, 2, 128), torch.float32, None),
-            ((1, 1000, 16, 2, 128), torch.float32, 256),
-            ((1, 1000, 16, 2, 128), torch.bfloat16, 256),
-            *((shape, dtype, None) for shape in MHA_CALLS
+    odd = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for shape in ATTN_GRID:
+        for d in ODD_HEAD_DIMS:
+            for causal, window in ATTN_MASKS:
+                for dtype in odd:
+                    q, k, v = attention_inputs(dev, *shape[:4], d, dtype,
+                                               sum(shape) + d)
+                    odd[dtype] = max(odd[dtype], attention_err(
+                        fa, kref, q, k, v, causal, window,
+                        f"{shape[:4]} D={d} {dtype} causal={causal} "
+                        f"window={window}"))
+    for dtype, e in odd.items():
+        err[dtype] = max(err[dtype], e)
+    print(f"   CUDA-core flash_attention == plain on the grid at D "
+          f"{' and '.join(map(str, ODD_HEAD_DIMS))} (3 masks): max |diff| "
+          f"f32 {odd[torch.float32]:.3g}, bf16 {odd[torch.bfloat16]:.3g}",
+          flush=True)
+    for shape, dtype, causal, window in (
+            ((LM_BATCH, LM_SEQ, 16, 2, 128), torch.bfloat16, True, None),
+            ((LM_BATCH, LM_SEQ, 16, 2, 128), torch.float32, True, None),
+            ((1, 1000, 16, 2, 128), torch.float32, True, 256),
+            ((1, 1000, 16, 2, 128), torch.bfloat16, True, 256),
+            *((shape, dtype, True, None) for shape in MHA_CALLS
+              for dtype in (torch.bfloat16, torch.float32)),
+            *((shape, dtype, causal, None) for shape, causal in S15_CALLS
               for dtype in (torch.bfloat16, torch.float32))):
         q, k, v = attention_inputs(dev, *shape, dtype, 7)
-        e = attention_err(fa, kref, q, k, v, True, window,
-                          f"{shape} {dtype} window={window}")
+        e = attention_err(fa, kref, q, k, v, causal, window,
+                          f"{shape} {dtype} causal={causal} window={window}")
         err[dtype] = max(err[dtype], e)
-        print(f"   flash_attention == plain at {shape} {dtype} causal, "
-              f"window {window}: max |diff| {e:.3g}", flush=True)
+        print(f"   flash_attention == plain at {shape} {dtype} "
+              f"{'causal' if causal else 'non-causal'}, window {window} "
+              f"({fa.route(dtype, shape[4])} kernel): max |diff| {e:.3g}",
+              flush=True)
+        del q, k, v
     return err
 
 
@@ -1482,9 +1543,9 @@ def time_attention(dev, fa, kref, build):
     return out
 
 
-def attention_times(dev, fa, kref, shape, dtype):
-    """One causal call ``shape`` = (B, S, H, KV, D) in ``dtype``: held
-    against the plain version, then the kernel (its route), the plain
+def attention_times(dev, fa, kref, shape, dtype, causal: bool = True):
+    """One call ``shape`` = (B, S, H, KV, D) in ``dtype``, causal or not:
+    held against the plain version, then the kernel (its route), the plain
     version and ``scaled_dot_product_attention`` (timed only) timed.  The
     bound: 4·B·H·D·(kept pairs) operations at the dtype's peak (bf16
     tensor cores, float32 CUDA cores), or q/k/v/o once over the memory.
@@ -1494,19 +1555,23 @@ def attention_times(dev, fa, kref, shape, dtype):
     b, s, h, kv, d = shape
     peak = BF16_TENSOR_OPS_PER_S if dtype == torch.bfloat16 \
         else FP32_OPS_PER_S
-    ops = 4 * b * h * d * kept_pairs(s, True, None)
+    ops = 4 * b * h * d * kept_pairs(s, causal, None)
     q, k, v = attention_inputs(dev, b, s, h, kv, d, dtype, 5)
     name = "bf16" if dtype == torch.bfloat16 else "f32"
-    err = attention_err(fa, kref, q, k, v, True, None,
-                        f"{shape} {name} causal")
+    mask = "causal" if causal else "non-causal"
+    err = attention_err(fa, kref, q, k, v, causal, None,
+                        f"{shape} {name} {mask}")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     t = {
-        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v), reps=20),
-        "plain_ms": cuda_ms(lambda: kref.attention_ref(q, k, v), reps=5),
+        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
+                      reps=20),
+        "plain_ms": cuda_ms(lambda: kref.attention_ref(q, k, v,
+                                                       causal=causal),
+                            reps=5),
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), reps=20),
-        "err": err, "shape": f"{shape} {name} causal",
-        "route": fa.route(dtype, d),
+            qt, kt, vt, is_causal=causal, enable_gqa=True), reps=20),
+        "err": err, "shape": f"{shape} {name} {mask}",
+        "route": fa.route(dtype, d), "ops": ops,
     }
     nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
     t["bound_ms"], t["bound_by"] = bound_ms(nbytes, ops, peak)
@@ -1531,23 +1596,41 @@ def close_logits(got, want, what: str) -> float:
     return diff
 
 
-def lm_model(lm, dtype: str, seed: int, dev, arch: str = LM_ARCH):
-    """``arch`` (qwen2.5-3b) at full width and depth on the kernel path,
-    random weights from ``seed`` drawn on the card, and a (2, 4096)
-    prompt."""
+def lm_model(lm, dtype: str, seed: int, dev, arch: str = LM_ARCH,
+             layers=None):
+    """``arch`` (qwen2.5-3b) at full width on the kernel path, its depth
+    cut to ``layers`` if given, random weights from ``seed`` drawn on the
+    card, and a (2, 4096) prompt: tokens, and for an arch fed the
+    frontend's embeddings (pixtral, hubert) also (2, 4096, d_model)
+    ``embeds`` in the model's dtype from the same generator, which the
+    prefill reads in place of the tokens."""
     cfg = dataclasses.replace(lm.get_arch(arch), dtype=dtype,
                               attn_impl="cuda")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     g = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.perf_counter()
     model = lm.init_params(cfg, g, dev)
     torch.cuda.synchronize()
-    toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ), generator=g,
-                         device=dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ),
+                                     generator=g, device=dev)}
+    if lm.uses_embeds(cfg):
+        batch["embeds"] = torch.randn((LM_BATCH, LM_SEQ, cfg.d_model),
+                                      generator=g, device=dev,
+                                      dtype=getattr(torch, dtype))
     print(f"   {arch} {dtype}: {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.num_params():,} parameters, "
-          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
-          f"drawn in {time.perf_counter() - t0:.2f}s", flush=True)
-    return cfg, model, {"tokens": toks}
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV "
+          f"heads of {cfg.resolved_head_dim}, {cfg.num_params():,} "
+          f"parameters, {torch.cuda.memory_allocated() / 1e9:.2f} GB on the "
+          f"card, drawn in {time.perf_counter() - t0:.2f}s; input "
+          f"{prefill_input(batch)}", flush=True)
+    return cfg, model, batch
+
+
+def prefill_input(batch) -> str:
+    """What a prefill of ``batch`` reads, with its shape."""
+    x = batch.get("embeds", batch["tokens"])
+    return f"{'embeds' if 'embeds' in batch else 'tokens'} {tuple(x.shape)}"
 
 
 def attention_layers(cfg) -> int:
@@ -1585,25 +1668,35 @@ def prefill_both(lm, fa, model, cfg, batch, watch=None):
     return kern, plain, launches
 
 
-def lm_f32_check(dev, lm, fa) -> int:
-    """qwen2.5-3b in float32: the kernel path's prefill against the plain
-    path's and decode against prefill; returns the (CUDA-core) kernel's
-    launches in one prefill."""
-    cfg, model, batch = lm_model(lm, "float32", 0, dev)
+def lm_f32_check(dev, lm, fa, arch: str = LM_ARCH, layers=None) -> int:
+    """``arch`` (qwen2.5-3b) in float32, its depth cut to ``layers`` if
+    given: the kernel path's prefill against the plain path's and, for a
+    decoder, decode against prefill (a prefill fed embeddings reads the
+    prompt's rows of the embedding table, as decode does); returns the
+    (CUDA-core) kernel's launches in one prefill."""
+    cfg, model, batch = lm_model(lm, "float32", 0, dev, arch, layers)
     with torch.inference_mode():
         kern, plain, launches = prefill_both(lm, fa, model, cfg, batch)
-        close_logits(kern, plain, f"f32 prefill {tuple(batch['tokens'].shape)}"
-                     f" kernel vs plain path")
-        prompt = batch["tokens"][:, :LM_PROMPT]
-        pre = lm.prefill(model, cfg, {"tokens": prompt})
-        caches = lm.init_caches(cfg, LM_BATCH, LM_PROMPT, device=dev)
-        for t in range(LM_PROMPT):
-            pos = torch.full((LM_BATCH,), t, dtype=torch.int32, device=dev)
-            logits, caches = lm.decode_step(model, caches, cfg,
-                                            prompt[:, t:t + 1], pos)
-        close_logits(logits, pre, f"f32 decode over a {LM_PROMPT}-token "
-                     f"prompt vs its prefill on the kernel path")
-    del model, caches
+        close_logits(kern, plain, f"f32 prefill {prefill_input(batch)} "
+                     f"kernel vs plain path")
+        if cfg.encoder_only:
+            print("   encoder-only: no decode path", flush=True)
+        else:
+            prompt = batch["tokens"][:, :LM_PROMPT]
+            inputs = {"tokens": prompt}
+            if lm.uses_embeds(cfg):
+                inputs["embeds"] = model.embed[prompt]
+            pre = lm.prefill(model, cfg, inputs)
+            caches = lm.init_caches(cfg, LM_BATCH, LM_PROMPT, device=dev)
+            for t in range(LM_PROMPT):
+                pos = torch.full((LM_BATCH,), t, dtype=torch.int32,
+                                 device=dev)
+                logits, caches = lm.decode_step(model, caches, cfg,
+                                                prompt[:, t:t + 1], pos)
+            close_logits(logits, pre, f"f32 decode over a {LM_PROMPT}-token "
+                         f"prompt vs its prefill on the kernel path")
+            del caches
+    del model
     torch.cuda.empty_cache()
     return launches
 
@@ -1658,26 +1751,75 @@ def profile_lm(label: str, fn, top: int) -> None:
               f"{e.key[:90]}", flush=True)
 
 
-def lm_bf16_run(dev, lm, fa, arch: str = LM_ARCH, seed: int = 1) -> dict:
+def reaches_kernel(cfg) -> bool:
+    """Whether ``cfg``'s attention runs the flash kernel: not with an
+    attention softcap, which both packages send to the plain chunked path
+    (gemma2-27b)."""
+    return cfg.attn_impl == "cuda" and cfg.attn_softcap is None
+
+
+def prefill_chunked_naive(lm, fa, model, cfg, batch, watch):
+    """For an arch whose attention reaches no kernel: the configured path
+    (``"cuda"`` with a softcap runs the plain chunked flash), which must
+    launch no kernel, the counters set to 0 just before and read just
+    after, then the materialised softmax (``"naive"``).  ``watch`` records
+    the runs as "kernel" (the configured path) and "plain".  Returns the
+    two logits and 0."""
+    fa.launches = 0
+    fa.route_launches = dict.fromkeys(fa.ROUTES, 0)
+    with watch.run("kernel"):
+        chunked = lm.prefill(model, cfg, batch)
+        torch.cuda.synchronize()
+    if fa.launches:
+        raise AssertionError(f"the chunked path launched the kernel "
+                             f"{fa.route_launches} times")
+    print(f"   {cfg.dtype} prefill: no kernel launch (an attention softcap of "
+          f"{cfg.attn_softcap:g}: the chunked path)", flush=True)
+    with watch.run("plain"):
+        naive = lm.prefill(model, dataclasses.replace(cfg, attn_impl="naive"),
+                           batch)
+        torch.cuda.synchronize()
+    return chunked, naive, 0
+
+
+def lm_bf16_run(dev, lm, fa, arch: str = LM_ARCH, seed: int = 1,
+                warmup: int = SERVE["prompt_len"]) -> dict:
     """``arch`` (qwen2.5-3b) as configured (bf16): the kernel and plain
     prefills, held by :func:`bf16_gate` (for an MoE arch their routing is
-    reported, :func:`compare_routes`), their seconds, one profiled
-    prefill, one profiled decode step, then ``serve_batch``.  Returns the
-    kernel's launches in one prefill, the attention calls' record
-    (:func:`attention_held`) and ``serve_batch``'s output."""
+    reported, :func:`compare_routes`; an arch whose attention reaches no
+    kernel runs its chunked path against the materialised softmax,
+    :func:`prefill_chunked_naive`), their seconds, one profiled prefill,
+    and for a decoder one profiled decode step, then ``serve_batch``.  The
+    decode step runs at serve_batch's batch and cache length after
+    ``warmup`` decode steps (its attention reads the whole cache under a
+    mask, so the step's work does not depend on the position).  Returns
+    the kernel's launches in one prefill, the attention calls' record
+    (:func:`attention_held`; None with no kernel), ``serve_batch``'s
+    output (None for an encoder), the prefills' seconds and the peak
+    memory."""
     import torch.nn.functional as F
 
     torch.cuda.reset_peak_memory_stats()
     cfg, model, batch = lm_model(lm, "bfloat16", seed, dev, arch)
     watch = PrefillWatch(lm, model, cfg)
+    kernel = reaches_kernel(cfg)
+    plain_cfg = cfg if kernel else dataclasses.replace(cfg,
+                                                       attn_impl="naive")
+    path, plain_path = ("kernel path", "plain path") if kernel else \
+        ("chunked path", "materialised softmax")
     with torch.inference_mode():
-        with attention_held(lm.kops, lm.kref) as held:
-            kern, plain, launches = prefill_both(lm, fa, model, cfg, batch,
-                                                 watch)
+        if kernel:
+            with attention_held(lm.kops, lm.kref) as held:
+                kern, plain, launches = prefill_both(lm, fa, model, cfg,
+                                                     batch, watch)
+        else:
+            held = None
+            kern, plain, launches = prefill_chunked_naive(lm, fa, model, cfg,
+                                                          batch, watch)
         if not (torch.isfinite(kern).all() and torch.isfinite(plain).all()):
             raise AssertionError("bf16 prefill: non-finite logits")
         cos = F.cosine_similarity(kern, plain, dim=-1)
-        print(f"   bf16 prefill kernel vs plain path: max |diff| "
+        print(f"   bf16 prefill {path} vs {plain_path}: max |diff| "
               f"{float((kern - plain).abs().max()):.4g} (largest |logit| "
               f"{float(plain.abs().max()):.4g}), cosine per row "
               f"{[round(float(c), 6) for c in cos]}", flush=True)
@@ -1688,42 +1830,56 @@ def lm_bf16_run(dev, lm, fa, arch: str = LM_ARCH, seed: int = 1) -> dict:
         watch.runs.clear()
         kernel_s = prefill_seconds(lm, model, cfg, batch)
         with knobs(QUIPT_ATTN_IMPL="ref"):
-            plain_s = prefill_seconds(lm, model, cfg, batch)
-        print(f"   bf16 prefill {tuple(batch['tokens'].shape)}: kernel path "
-              f"{kernel_s:.4f}s, plain path {plain_s:.4f}s (median of 3); "
-              f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
-              f"(max_memory_allocated)", flush=True)
+            plain_s = prefill_seconds(lm, model, plain_cfg, batch)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"   bf16 prefill {prefill_input(batch)}"
+              + (" (the encoder's forward)" if cfg.encoder_only else "")
+              + f": {path} {kernel_s:.4f}s, {plain_path} {plain_s:.4f}s "
+              f"(median of 3); peak "
+              f"{peak / 1e9:.2f} GB (max_memory_allocated)", flush=True)
         profile_lm(f"{arch} bf16 prefill",
                    lambda: lm.prefill(model, cfg, batch), top=8)
-        # one decode step at serve_batch's batch, past a warmed-up prompt
         b, t = SERVE["batch"], SERVE["prompt_len"]
-        caches = lm.init_caches(cfg, b, t + SERVE["gen"], device=dev)
-        toks = batch["tokens"][:1, :b].reshape(b, 1)
-        for p in range(t):
-            pos = torch.full((b,), p, dtype=torch.int32, device=dev)
-            lm.decode_step(model, caches, cfg, toks, pos)
-        weights = sum(p.numel() * p.element_size() for p in model.parameters())
-        print(f"   a decode step reads the weights once at least: "
-              f"{weights / 1e9:.2f} GB, {weights / HBM_BYTES_PER_S * 1e3:.2f}"
-              f" ms over the memory", flush=True)
-        profile_lm(f"{arch} bf16 decode step (batch {b}, position {t})",
-                   lambda: lm.decode_step(model, caches, cfg, toks, pos + 1),
-                   top=4)
-    del model, caches, watch
+        if not cfg.encoder_only:
+            # one decode step at serve_batch's batch and cache length
+            caches = lm.init_caches(cfg, b, t + SERVE["gen"], device=dev)
+            toks = batch["tokens"][:1, :b].reshape(b, 1)
+            for p in range(warmup):
+                pos = torch.full((b,), p, dtype=torch.int32, device=dev)
+                lm.decode_step(model, caches, cfg, toks, pos)
+            weights = sum(p.numel() * p.element_size()
+                          for p in model.parameters())
+            print(f"   a decode step reads the weights once at least: "
+                  f"{weights / 1e9:.2f} GB, "
+                  f"{weights / HBM_BYTES_PER_S * 1e3:.2f} ms over the memory",
+                  flush=True)
+            profile_lm(f"{arch} bf16 decode step (batch {b}, position "
+                       f"{warmup}, a cache of {t + SERVE['gen']})",
+                       lambda: lm.decode_step(model, caches, cfg, toks,
+                                              pos + 1),
+                       top=4)
+            del caches
+    del model, watch
     gc.collect()
     torch.cuda.empty_cache()
-    out = lm.serve_batch(cfg, seed=0, device=dev, **SERVE)
-    toks = out["tokens"]
-    if toks.shape != (SERVE["batch"], SERVE["gen"]) or not (
-            (toks >= 0) & (toks < cfg.vocab)).all():
-        raise AssertionError(f"serve_batch returned {toks.shape} tokens out "
-                             f"of range")
-    print(f"   {arch} serve_batch {SERVE}: prefill by decode "
-          f"{out['prefill_s']:.3f}s, decode {out['decode_s']:.3f}s, "
-          f"{out['tok_per_s']:.1f} tok/s", flush=True)
+    out = None
+    if cfg.encoder_only:
+        print(f"   {arch} is encoder-only: no decode step, no serve_batch",
+              flush=True)
+    else:
+        out = lm.serve_batch(cfg, seed=0, device=dev, **SERVE)
+        toks = out["tokens"]
+        if toks.shape != (SERVE["batch"], SERVE["gen"]) or not (
+                (toks >= 0) & (toks < cfg.vocab)).all():
+            raise AssertionError(f"serve_batch returned {toks.shape} tokens "
+                                 f"out of range")
+        print(f"   {arch} serve_batch {SERVE}: prefill by decode "
+              f"{out['prefill_s']:.3f}s, decode {out['decode_s']:.3f}s, "
+              f"{out['tok_per_s']:.1f} tok/s", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": launches, "held": held, "serve": out}
+    return {"launches": launches, "held": held, "serve": out,
+            "prefill_s": kernel_s, "plain_s": plain_s, "peak": peak}
 
 
 # --------------------------------------------------------------------------- #
@@ -3003,33 +3159,41 @@ def attention_held(kops, kref):
         kops._flash_attention_cuda = real
 
 
-def bf16_gate(cfg, cos, watch, held: dict, launches: int) -> None:
+def bf16_gate(cfg, cos, watch, held, launches: int) -> None:
     """The bf16 prefills' gates, ``cos`` the logits' cosine per row
     between the kernel and plain paths.  (1) Every attention call of the
     kernel path within ``ATTN_TOL`` of the plain version on its own
     inputs, the planted fault seen in every call
-    (:func:`attention_held`).  (2) The residual stream just after the
-    first attention layer within ``RESIDUAL_RTOL`` of the plain path's,
-    per row.  (3) For an arch of attention and dense MLP layers only,
-    ``cos >= 0.99`` in every row.  With SSM or MoE layers (3) is
+    (:func:`attention_held`); ``held`` None for an arch whose attention
+    reaches no kernel (its two paths are the chunked and the materialised
+    softmax, :func:`prefill_chunked_naive`).  (2) The residual stream just
+    after the first attention layer within ``RESIDUAL_RTOL`` of the plain
+    path's, per row.  (3) For an arch of attention and dense MLP layers
+    only, ``cos >= 0.99`` in every row.  With SSM or MoE layers (3) is
     reported, not gated: bfloat16 SSM layers carry one rounding of
     difference 0.96 of the way from float32 (zamba2-1.2b's plain path is
     itself 0.957 from a float32 prefill), and an MoE layer's routing
     flips at near ties and the flips cascade."""
-    if held["calls"] != launches:
+    if held is None:
+        if launches:
+            raise AssertionError(f"{launches} kernel launches on a path "
+                                 f"that reaches no kernel")
+    elif held["calls"] != launches:
         raise AssertionError(f"{held['calls']} attention calls held, "
                              f"{launches} launched")
-    print(f"   attention on the kernel path's own inputs, {held['calls']} "
-          f"calls: max |kernel - plain| {held['max_abs']:.4g}, largest "
-          f"|diff| / (atol + rtol |plain|) {held['worst']:.3f} (at most 1); "
-          f"head 0 scaled by {PLANTED}: smallest ratio {held['planted']:.3f}"
-          f" (above 1: caught in every call)", flush=True)
-    if held["worst"] > 1:
-        raise AssertionError("bf16 prefill: an attention call differs from "
-                             "the plain version on its own inputs")
-    if not held["planted"] > 1:
-        raise AssertionError("bf16 prefill: the attention gate missed the "
-                             "planted fault")
+    else:
+        print(f"   attention on the kernel path's own inputs, "
+              f"{held['calls']} calls: max |kernel - plain| "
+              f"{held['max_abs']:.4g}, largest |diff| / (atol + rtol "
+              f"|plain|) {held['worst']:.3f} (at most 1); head 0 scaled by "
+              f"{PLANTED}: smallest ratio {held['planted']:.3f} (above 1: "
+              f"caught in every call)", flush=True)
+        if held["worst"] > 1:
+            raise AssertionError("bf16 prefill: an attention call differs "
+                                 "from the plain version on its own inputs")
+        if not held["planted"] > 1:
+            raise AssertionError("bf16 prefill: the attention gate missed "
+                                 "the planted fault")
     ka, pa = watch.runs["kernel"]["after_attention"], \
         watch.runs["plain"]["after_attention"]
     if len(ka) != 1 or len(pa) != 1:
@@ -3633,6 +3797,165 @@ def reshard_on_nccl(dev, lm, sh) -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------- #
+# slice 15: the five archs never run on the card before
+# --------------------------------------------------------------------------- #
+#: the reference's ``num_params()`` at full width, in the order the slice
+#: runs them (gemma2-27b, 54.45 GB in bf16, last)
+S15_PARAMS = {"gemma-7b": 8_537_505_792, "qwen3-8b": 7_568_097_280,
+              "pixtral-12b": 11_576_279_040, "hubert-xlarge": 945_008_640,
+              "gemma2-27b": 27_226_275_840}
+GEMMA2 = "gemma2-27b"
+S15_F32_LAYERS = 4  # the f32 twins' depth (gemma2: two local, two global)
+#: gemma2's f32 prefill, longer than its local layers' 4,096-key window
+GEMMA2_F32_SEQ = 6144
+#: decode steps before the profiled one (slices 4, 11-13 take 128): the
+#: decode attention reads the whole cache under a mask, so a step's work
+#: does not depend on its position
+S15_WARMUP = 16
+
+
+def s15_counts(lm) -> None:
+    """Each arch's model on the ``meta`` device (no memory) at full width:
+    its matrices count ``num_params()``, which must equal the
+    reference's."""
+    for arch, params in S15_PARAMS.items():
+        cfg = lm.get_arch(arch)
+        model = lm.LM(cfg, device="meta")
+        matrices = sum(p.numel() for p in model.parameters() if p.dim() >= 2)
+        print(f"   {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.n_heads} heads over {cfg.n_kv_heads} of "
+              f"{cfg.resolved_head_dim}; num_params() {cfg.num_params():,}, "
+              f"{matrices:,} in the meta model's matrices (the reference's "
+              f"{params:,}), {2 * cfg.num_params() / 1e9:.2f} GB in bf16",
+              flush=True)
+        if (cfg.num_params(), matrices) != (params, params):
+            raise AssertionError(f"{arch}'s parameter count differs from the "
+                                 f"reference's")
+
+
+def gemma2_f32_check(dev, lm, fa) -> None:
+    """gemma2-27b in float32 at full width over ``S15_F32_LAYERS`` layers
+    (local and global alternating): a 1 x ``GEMMA2_F32_SEQ`` prefill on the
+    configured path (``"cuda"`` with the attention softcap: the chunked
+    flash, no kernel) against the materialised softmax, within 1e-3 of
+    the largest logit with the same argmax, the local layers' window
+    masking the oldest keys of the last 2,048 queries; then decode over a
+    128-token prompt against its chunked prefill."""
+    cfg = dataclasses.replace(lm.get_arch(GEMMA2), dtype="float32",
+                              attn_impl="cuda", n_layers=S15_F32_LAYERS)
+    g = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    model = lm.init_params(cfg, g, dev)
+    toks = torch.randint(0, cfg.vocab, (1, GEMMA2_F32_SEQ), generator=g,
+                         device=dev)
+    torch.cuda.synchronize()
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    print(f"   {GEMMA2} f32: {cfg.n_layers} layers {kinds}, window "
+          f"{cfg.local_window}, softcaps {cfg.attn_softcap:g} (attention) and "
+          f"{cfg.logit_softcap:g} (logits), {cfg.num_params():,} parameters, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, drawn "
+          f"in {time.perf_counter() - t0:.2f}s", flush=True)
+    if "local" not in kinds or GEMMA2_F32_SEQ <= cfg.local_window:
+        raise AssertionError("the f32 prefill does not reach past a local "
+                             "layer's window")
+    with torch.inference_mode():
+        fa.launches = 0
+        t0 = time.perf_counter()
+        chunked = lm.prefill(model, cfg, {"tokens": toks})
+        torch.cuda.synchronize()
+        chunked_s = time.perf_counter() - t0
+        if fa.launches:
+            raise AssertionError("the chunked path launched the kernel")
+        t0 = time.perf_counter()
+        naive = lm.prefill(model, dataclasses.replace(cfg, attn_impl="naive"),
+                           {"tokens": toks})
+        torch.cuda.synchronize()
+        print(f"   prefill {tuple(toks.shape)}: chunked {chunked_s:.3f}s (no "
+              f"kernel launch), materialised {time.perf_counter() - t0:.3f}s "
+              f"(first calls)", flush=True)
+        close_logits(chunked, naive, f"f32 prefill {tuple(toks.shape)} "
+                     f"chunked vs materialised softmax")
+        prompt = toks[:, :LM_PROMPT]
+        pre = lm.prefill(model, cfg, {"tokens": prompt})
+        caches = lm.init_caches(cfg, 1, LM_PROMPT, device=dev)
+        for t in range(LM_PROMPT):
+            pos = torch.full((1,), t, dtype=torch.int32, device=dev)
+            logits, caches = lm.decode_step(model, caches, cfg,
+                                            prompt[:, t:t + 1], pos)
+        close_logits(logits, pre, f"f32 decode over a {LM_PROMPT}-token "
+                     f"prompt vs its chunked prefill")
+    del model, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def s15_times(dev, fa, kref) -> list:
+    """The kernel at slice 15's three bf16 prefill calls (``S15_CALLS``),
+    timed beside its plain version, SDPA and the bound
+    (:func:`attention_times`); the CUDA-core route's time is also set
+    beside the FP32 peak's bound."""
+    out = []
+    for shape, causal in S15_CALLS:
+        t = attention_times(dev, fa, kref, shape, torch.bfloat16, causal)[3]
+        torch.cuda.empty_cache()
+        print(f"   flash_attention at {t['shape']} ({t['route']} kernel): "
+              f"median kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+              f"ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']}), library "
+              f"{t['library_ms']:.4f} ms"
+              + (f"; at the FP32 peak the bound is "
+                 f"{t['ops'] / FP32_OPS_PER_S * 1e3:.4f} ms"
+                 if t["route"] == "cuda_core" else ""), flush=True)
+        out.append(t)
+    return out
+
+
+def slice15(dev, lm, fa, kref) -> dict:
+    """Slice 15's phases: the parameter counts; for gemma-7b, qwen3-8b,
+    pixtral-12b and hubert-xlarge the float32 twin at ``S15_F32_LAYERS``
+    layers (:func:`lm_f32_check`) and the bf16 run at full width and depth
+    (:func:`lm_bf16_run`); gemma2-27b's float32 twin
+    (:func:`gemma2_f32_check`) and bf16 run, drawn once under 1 GB is held
+    on the card; then the kernel's times at the three calls.  Returns the
+    runs by arch, the f32 launches by arch and the times."""
+    t_s15 = time.perf_counter()
+    with phase(f"slice 15: the five archs' parameter counts at full width "
+               f"(meta device) against the reference's"):
+        s15_counts(lm)
+    runs, f32 = {}, {}
+    for arch in S15_PARAMS:
+        t_arch = time.perf_counter()
+        if arch == GEMMA2:
+            with phase(f"slice 15: {arch} float32 at full width, "
+                       f"{S15_F32_LAYERS} layers, 1 x {GEMMA2_F32_SEQ}: "
+                       f"chunked == materialised past the local window, "
+                       f"decode == prefill"):
+                gemma2_f32_check(dev, lm, fa)
+                f32[arch] = 0
+        else:
+            decoder = not lm.get_arch(arch).encoder_only
+            with phase(f"slice 15: {arch} float32 at full width, "
+                       f"{S15_F32_LAYERS} layers, {LM_BATCH} x {LM_SEQ}: "
+                       f"kernel path == plain path"
+                       + (", decode == prefill" if decoder else "")):
+                f32[arch] = lm_f32_check(dev, lm, fa, arch, S15_F32_LAYERS)
+        with phase(f"slice 15: {arch} bfloat16 at full width and depth: "
+                   f"prefill on both paths, profile"
+                   + ("" if lm.get_arch(arch).encoder_only
+                      else ", decode step, serve_batch")):
+            if arch == GEMMA2:
+                assert_card_free(f"{arch} bf16")
+            runs[arch] = lm_bf16_run(dev, lm, fa, arch, warmup=S15_WARMUP)
+        print(f"   slice 15: {arch} {time.perf_counter() - t_arch:.1f}s",
+              flush=True)
+    with phase("slice 15: flash_attention times at the five archs' prefill "
+               "calls"):
+        times = s15_times(dev, fa, kref)
+    print(f"   slice 15: {time.perf_counter() - t_s15:.1f}s for its phases",
+          flush=True)
+    return {"runs": runs, "f32": f32, "times": times}
+
+
 #: the dry run's cells held against the card: (label, arch overrides,
 #: shape, remat); slice 4's prefill through the kernel and slice 10's step
 DRY_CELLS = (("prefill", {"attn_impl": "cuda"},
@@ -3757,9 +4080,10 @@ def kernel_entry(name, source, replaces, launches, t, err, library_ms):
 def main() -> int:
     kernels_only = sys.argv[1:] == ["--kernels"]
     dryrun_only = sys.argv[1:] == ["--dryrun"]
-    if sys.argv[1:] and not (kernels_only or dryrun_only):
-        print("usage: python3 chip_smoke.py [--kernels | --dryrun]",
-              file=sys.stderr)
+    slice15_only = sys.argv[1:] == ["--slice15"]
+    if sys.argv[1:] and not (kernels_only or dryrun_only or slice15_only):
+        print("usage: python3 chip_smoke.py [--kernels | --dryrun | "
+              "--slice15]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs a "
@@ -3791,7 +4115,7 @@ def main() -> int:
         from repro_torch.launch.serve import serve_batch
         from repro_torch.launch.train import quip_batch_stream, train_loop
         from repro_torch.models import (LM, decode_step, init_caches,
-                                        init_params, prefill)
+                                        init_params, prefill, uses_embeds)
         from repro_torch.models import attention as attn_mod
         from repro_torch.models import moe as moe_mod
         from repro_torch.models.transformer import layer_specs
@@ -3817,7 +4141,7 @@ def main() -> int:
                                init_caches=init_caches,
                                serve_batch=serve_batch, LM=LM, moe=moe_mod,
                                attn=attn_mod, layer_specs=layer_specs,
-                               kops=kops, kref=kref)
+                               kops=kops, kref=kref, uses_embeds=uses_embeds)
     sh = types.SimpleNamespace(make_host_mesh=make_host_mesh,
                                place_state=place_state,
                                reshard_state=reshard_state,
@@ -3863,6 +4187,12 @@ def main() -> int:
     if dryrun_only:  # slice 14's phase alone, for a short chip call
         with phase("dry run vs card (slice 14)"):
             dryrun_vs_card(dev, lm, tr, dr, fa, card)
+        print(card)
+        return 0
+    if slice15_only:  # the attention checks and slice 15's phases alone
+        with phase("flash_attention against its plain version"):
+            check_attention(dev, fa, kref)
+        slice15(dev, lm, fa, kref)
         print(card)
         return 0
     with phase("data"):
@@ -4194,6 +4524,7 @@ def main() -> int:
         reshard_on_nccl(dev, lm, sh)
     print(f"   slice 13: {time.perf_counter() - t_s13:.1f}s for its four "
           f"phases", flush=True)
+    s15 = slice15(dev, lm, fa, kref)
     t_s14 = time.perf_counter()
     with phase(f"dry run vs card (slice 14): {LM_ARCH} prefill and train "
                f"step traced on a (1, 1) fake world, then counted on the "
@@ -4235,6 +4566,33 @@ def main() -> int:
           f"{dsv3_run['serve']['decode_s']:.3f}s); MLA gate ratio "
           f"{dsv3_run['gate']['worst']:.3f}, planted "
           f"{dsv3_run['gate']['planted']:.3f}")
+    s15_runs = s15["runs"]
+    for arch, run in s15_runs.items():
+        f32_note = (f"flash_attention_f32 (CUDA core) {s15['f32'][arch]} per "
+                    f"f32 prefill at {S15_F32_LAYERS} layers"
+                    if s15["f32"][arch] else "no kernel (softcap)")
+        served = run["serve"]
+        print(f"   slice 15: {arch} bf16 prefill {LM_BATCH} x {LM_SEQ} "
+              f"{run['prefill_s']:.4f}s (plain {run['plain_s']:.4f}s), peak "
+              f"{run['peak'] / 1e9:.2f} GB, {run['launches']} kernel "
+              f"launches a prefill; {f32_note}; "
+              + (f"serve_batch {SERVE} {served['tok_per_s']:.1f} tok/s "
+                 f"(decode {served['decode_s']:.3f}s)" if served else
+                 "encoder-only"))
+    # the bf16 launches by route: hubert's D 80 runs the CUDA-core kernel,
+    # the same kernel as the float32 calls, and counts under its entry
+    by_route = {route: [r for a, r in s15_runs.items() if fa.route(
+        torch.bfloat16, get_arch(a).resolved_head_dim) == route]
+        for route in fa.ROUTES}
+    s15_tc, s15_cc = (sum(r["launches"] for r in by_route[route])
+                      for route in ("tensor_core", "cuda_core"))
+    s15_err = {route: max([t["err"] for t in s15["times"]
+                           if t["route"] == route]
+                          + [r["held"]["max_abs"] for r in by_route[route]
+                             if r["held"] is not None])
+               for route in fa.ROUTES}
+    print(f"   slice 15 launches by route: bf16 tensor core {s15_tc}, bf16 "
+          f"CUDA core {s15_cc}, f32 CUDA core {sum(s15['f32'].values())}")
     print(f"total {time.perf_counter() - t_start:.1f}s", flush=True)
 
     csrc = "src/repro_torch/csrc/"
@@ -4278,18 +4636,21 @@ def main() -> int:
         kernel_entry("flash_attention", csrc + "flash_attention_tc.cu",
                      "src/repro/kernels/flash_attention.py:96",
                      lm_launches + hyb_run["launches"] + moe_run["launches"]
-                     + dry_launches,
+                     + dry_launches + s15_tc,
                      attn_t, max([attn_check_err[torch.bfloat16],
                                   attn_t["err"]]
                                  + [t["err"] for t in mha_t]
                                  + [run["held"]["max_abs"] for run in
-                                    (lm_run, hyb_run, moe_run)]),
+                                    (lm_run, hyb_run, moe_run)]
+                                 + [s15_err["tensor_core"]]),
                      attn_t["library_ms"]),
         kernel_entry("flash_attention_f32", csrc + "flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:96",
-                     lm_f32_launches + hyb_f32_launches + moe_f32_launches,
+                     lm_f32_launches + hyb_f32_launches + moe_f32_launches
+                     + sum(s15["f32"].values()) + s15_cc,
                      attn_f32_t,
-                     max(attn_check_err[torch.float32], attn_f32_t["err"]),
+                     max(attn_check_err[torch.float32], attn_f32_t["err"],
+                         s15_err["cuda_core"]),
                      attn_f32_t["library_ms"]),
     ]
     print(f"   empty-kernel floor: {floor:.4f} ms; kernel ms / floor: "

@@ -35,6 +35,7 @@ from repro_torch.configs import ArchConfig, all_archs, get_arch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import serve as port_serve
 from repro_torch.models import (
+    abstract_params,
     decode_step,
     init_caches,
     init_params,
@@ -44,10 +45,18 @@ from repro_torch.models import (
 from repro_torch.models.convert import (
     config_from_reference,
     params_from_reference,
+    reference_leaves,
 )
 
 TOL = 2e-4
 DENSE = ["qwen2.5-3b", "qwen3-8b", "gemma-7b"]
+#: the archs fed the frontend's embeddings: a VLM and an encoder
+EMBEDS = ["hubert-xlarge", "pixtral-12b"]
+#: ``num_params()`` of the five archs that slice 15 serves on the card, at
+#: full width (the reference's)
+FULL_PARAMS = {"gemma-7b": 8_537_505_792, "gemma2-27b": 27_226_275_840,
+               "qwen3-8b": 7_568_097_280, "pixtral-12b": 11_576_279_040,
+               "hubert-xlarge": 945_008_640}
 
 
 def _reference(arch: str, seed: int = 0, **overrides):
@@ -113,7 +122,7 @@ def test_attn_impl_is_validated_and_mapped():
             dataclasses.replace(ref, attn_impl=impl)).attn_impl == impl
 
 
-@pytest.mark.parametrize("arch", DENSE + ["hubert-xlarge", "pixtral-12b"])
+@pytest.mark.parametrize("arch", DENSE + EMBEDS)
 def test_init_params_matrices_count_num_params(arch):
     cfg = get_arch(arch).reduced()
     model = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -157,23 +166,32 @@ def test_converter_rejects_a_mismatch():
 # --------------------------------------------------------------------------- #
 # model twins
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + EMBEDS)
 @pytest.mark.parametrize("attn_impl", ["naive", "chunked", "pallas"])
 def test_prefill_twin(monkeypatch, arch, attn_impl):
-    """Last-position logits of the same weights and tokens; ``pallas`` runs
-    the reference's kernel in interpret mode and the port's ``cuda`` path
-    (on the CPU, the kernel's plain version)."""
+    """Last-position logits of the same weights and inputs (tokens, or for
+    pixtral and hubert the frontend's (B, S, d_model) embeddings; hubert
+    attends both ways); ``pallas`` runs the reference's kernel in
+    interpret mode and the port's ``cuda`` path (on the CPU, the kernel's
+    plain version)."""
     monkeypatch.delenv("QUIPT_ATTN_IMPL", raising=False)
     cfg, params, model = _reference(arch, seed=1, attn_impl=attn_impl,
                                     attn_q_chunk=16, attn_k_chunk=16)
     port_cfg = config_from_reference(cfg)
     assert port_cfg.attn_impl == ("cuda" if attn_impl == "pallas"
                                   else attn_impl)
-    toks = _tokens(cfg, 2, 40, seed=1)
-    want = jax_prefill(params, cfg, {"tokens": jnp.asarray(toks)})
+    if arch in EMBEDS:
+        x = np.random.default_rng(1).standard_normal(
+            (2, 40, cfg.d_model)).astype(np.float32)
+        jb, tb = {"embeds": jnp.asarray(x)}, {"embeds": torch.from_numpy(x)}
+    else:
+        toks = _tokens(cfg, 2, 40, seed=1)
+        jb, tb = {"tokens": jnp.asarray(toks)}, \
+            {"tokens": torch.from_numpy(toks)}
+    want = jax_prefill(params, cfg, jb)
     before = fa.launches
     with torch.inference_mode():
-        got = prefill(model, port_cfg, {"tokens": torch.from_numpy(toks)})
+        got = prefill(model, port_cfg, tb)
     assert fa.launches == before
     assert got.dtype == torch.float32 and got.shape == (2, cfg.vocab)
     _close(got, want)
@@ -208,13 +226,12 @@ def test_prefill_twin_softcaps():
     _close(got, want)
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma2-27b"])
-def test_decode_twin(arch):
-    """Logits after streaming a 12-token prompt through ``decode_step`` on
-    both sides, at every step."""
+def _decode_twin(arch: str, s: int) -> None:
+    """Logits after streaming an ``s``-token prompt through
+    ``decode_step`` on both sides, at every step."""
     cfg, params, model = _reference(arch, seed=5)
     port_cfg = config_from_reference(cfg)
-    b, s = 2, 12
+    b = 2
     toks = _tokens(cfg, b, s, seed=5)
     jc = jax_init_caches(cfg, b, s)
     tc = init_caches(port_cfg, b, s, device="cpu")
@@ -227,6 +244,47 @@ def test_decode_twin(arch):
                                   torch.from_numpy(toks[:, t:t + 1]),
                                   torch.full((b,), t, dtype=torch.int32))
             _close(got, want)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma2-27b", "qwen3-8b",
+                                  "gemma-7b", "pixtral-12b"])
+def test_decode_twin(arch):
+    """A 12-token prompt (pixtral decodes tokens through its embedding
+    table, as the reference does)."""
+    _decode_twin(arch, 12)
+
+
+def test_decode_twin_past_the_window():
+    """gemma2's local layers once the cache is longer than their window:
+    48 tokens past the reduced window of 32 keys, so the local layers'
+    decode mask drops the oldest keys for the last 16 steps."""
+    assert jax_get_arch("gemma2-27b").reduced().local_window == 32
+    _decode_twin("gemma2-27b", 48)
+
+
+@pytest.mark.parametrize("arch", sorted(FULL_PARAMS))
+def test_full_width_parameters_match_the_reference(arch):
+    """At full width on the ``meta`` device (no memory): the port's model
+    holds the reference's leaves, each of its shape and dtype; its
+    matrices count ``num_params()`` (the figure ``chip_smoke.py`` gates
+    the card's draw on) and all its tensors the reference tree's."""
+    cfg, ref_cfg = get_arch(arch), jax_get_arch(arch)
+    assert cfg.num_params() == ref_cfg.num_params() == FULL_PARAMS[arch]
+    model = abstract_params(cfg)
+    named = dict(model.named_parameters())
+    ref = jax.eval_shape(lambda: jax_init_params(ref_cfg,
+                                                 jax.random.PRNGKey(0)))
+    zeros = jax.tree.map(
+        lambda s: np.broadcast_to(np.zeros((), s.dtype), s.shape), ref)
+    want = reference_leaves(zeros, model)
+    for name, leaf in want.items():
+        assert tuple(named[name].shape) == leaf.shape, name
+        assert str(named[name].dtype).removeprefix("torch.") == \
+            leaf.dtype.name, name
+    assert sum(p.numel() for p in named.values()) == sum(
+        leaf.size for leaf in jax.tree_util.tree_leaves(ref))
+    assert sum(p.numel() for p in named.values() if p.dim() >= 2) == \
+        FULL_PARAMS[arch]
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma2-27b", "qwen3-8b"])
