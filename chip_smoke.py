@@ -210,6 +210,26 @@ timed at the three calls beside SDPA and its bound.
 ``python3 chip_smoke.py --slice15`` runs the attention checks and slice
 15's phases alone.
 
+Slice 16 trains the three archs besides qwen2.5-3b whose AdamW state fits
+one card at full depth, one phase each after slice 10's: zamba2-1.2b,
+mamba2-370m and hubert-xlarge (fed ``embeds``), through ``train_loop`` at
+full width and depth as slice 10 trains qwen2.5-3b (bf16, AdamW,
+``remat="full"``, 30 steps of 8 x 128 on the QUIP stream).  Besides slice
+10's gates, every step's gnorm and every parameter after the last step
+must be finite, and the flash kernel must not launch (it has no backward:
+training runs the plain attention).  Each prints seconds per step,
+tokens/s, the first step's seconds, the peak memory beside its reckoning
+and a profiled step, whose device time is split by scope: the plain
+attention (forward, recomputation and backward), the matrix products, the
+SSD scan's elementwise work and the rest.  Then one float32 step card ==
+CPU at a cut depth (zamba2 12 layers and mamba2 4 at 1 x 512: two SSD
+chunks, so the inter-chunk recurrence's backward runs; hubert 4 at 2 x
+256) under slice 10's gates; where a clipped gradient misses slice 10's
+bound, a float64 step on the CPU anchors both the card's and the CPU's
+gradients (rtol 1e-4 plus 2e-3 of each leaf's largest), and the phase
+prints which gate ran.  ``python3 chip_smoke.py --train`` runs slice
+10's and slice 16's phases alone.
+
 Each configuration runs once through the kernels and once through the plain
 versions, whose answers and imputation counts must agree; slice 2's wifi
 answers must also equal slice 1's.  The last phases check the paper's
@@ -1712,43 +1732,133 @@ def prefill_seconds(lm, model, cfg, batch, reps: int = 3) -> float:
     return float(np.median(times))
 
 
-def profile_lm(label: str, fn, top: int) -> None:
+@contextlib.contextmanager
+def patched(obj, name: str, value):
+    """``obj.name`` set to ``value`` for a block."""
+    saved = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, saved)
+
+
+def ranged(name: str, fn):
+    """``fn`` run inside a profiler range named ``name``."""
+    def run(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+    return run
+
+
+def device_kernels(prof, names) -> tuple:
+    """Every device event of ``prof`` but the ranges named in ``names``
+    (a range's span on the device timeline is an event too), as (name,
+    microseconds, scope), and the number of backward nodes traced to a
+    scope.  Read from the raw Kineto events: torch's own parse builds an
+    object for each CPU op and takes seconds for a train step's.  A
+    kernel's scope is that of the CPU op that launched it: the nearest
+    enclosing range named in ``names`` (a forward, or its recomputation
+    under remat), or, inside an autograd node (a backward op), the scope
+    of the forward op that made the node (the node's event carries that
+    op's sequence number and thread); None outside every scope."""
+    from torch.autograd import DeviceType
+
+    backward = 1  # at::RecordScope::BACKWARD_FUNCTION
+    # what torch's parse drops: memory records and hidden events
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.name() != "[memory]"
+              and not getattr(e, "is_hidden_event", lambda: False)()]
+    ops = sorted((e for e in events if e.device_type() == DeviceType.CPU
+                  and not e.is_async() and e.linked_correlation_id() == 0
+                  and e.start_thread_id() == e.end_thread_id()),
+                 key=lambda e: (e.start_thread_id(), e.start_ns(),
+                                -e.end_ns()))
+    marks, forward, open_ = {}, {}, {}  # open_: each thread's (end, mark)
+    for e in ops:
+        stack = open_.setdefault(e.start_thread_id(), [])
+        while stack and stack[-1][0] < e.end_ns():
+            stack.pop()
+        if e.name() in names:
+            mark = "range", e.name()
+        elif e.scope() == backward and e.sequence_nr() >= 0:
+            mark = "node", (e.fwd_thread_id(), e.sequence_nr())
+        else:
+            mark = stack[-1][1] if stack else (None, None)
+        stack.append((e.end_ns(), mark))
+        marks[e.correlation_id()] = mark
+        if mark[0] == "range" and e.sequence_nr() >= 0:
+            forward[(e.start_thread_id(), e.sequence_nr())] = mark[1]
+    out, nodes = [], set()
+    for e in events:
+        if e.device_type() == DeviceType.CPU or e.name() in names:
+            continue
+        kind, scope = marks.get(e.linked_correlation_id(), (None, None))
+        if kind == "node":
+            if scope in forward:
+                nodes.add(scope)
+            scope = forward.get(scope)
+        out.append((e.name(), e.duration_ns() / 1e3, scope))
+    return out, len(nodes)
+
+
+def profile_lm(label: str, fn, top: int, scopes=()) -> None:
     """One call of ``fn`` under ``torch.profiler``: wall seconds, device
     time split into the attention kernel, the matrix products and the
-    rest, the device idle share and the number of device kernels."""
-    from torch.autograd import DeviceType
+    rest, the device idle share and the number of device kernels.
+    ``scopes``: (label, object, function name, whole) for functions whose
+    kernels the split shows on their own (``device_kernels``; the function
+    is run inside a range of that label for the call): all of them where
+    ``whole``, else all but the matrix products."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-    split = {"attention kernel": 0.0, "matmuls": 0.0, "rest": 0.0}
-    for e in rows:
-        name = e.key.lower()
+    with contextlib.ExitStack() as stack:
+        for name, obj, attr, _ in scopes:
+            stack.enter_context(patched(obj, attr,
+                                        ranged(name, getattr(obj, attr))))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    whole = {name: w for name, _, _, w in scopes}
+    kernels, nodes = device_kernels(prof, frozenset(whole))
+    totals = {}  # device time and count by kernel name
+    for name, us, _ in kernels:
+        t, n = totals.get(name, (0.0, 0))
+        totals[name] = (t + us, n + 1)
+    rows = [(name, us, n) for name, (us, n) in totals.items() if us > 0]
+    split = dict.fromkeys(("attention kernel", "matmuls", "rest", *whole),
+                          0.0)
+    for kname, us, scope in kernels:
+        name = kname.lower()
         # the port's own kernels first: a name of theirs may hold "wgmma"
         if any(k in name for k in PORT_KERNELS):
             key = "attention kernel" if "flash_attention" in name else "rest"
-            split[key] += dev_us(e) / 1e6
+        elif scope is not None and whole[scope]:
+            key = scope
         elif any(m in name for m in MATMUL_NAMES):
-            split["matmuls"] += dev_us(e) / 1e6
+            key = "matmuls"
         else:
-            split["rest"] += dev_us(e) / 1e6
-    busy = sum(split.values())
+            key = scope or "rest"
+        split[key] += us / 1e6
+    busy = sum(us for _, us, _ in rows) / 1e6
+    shown = {k: v for k, v in split.items() if v or k not in whole}
     print(f"   profiled {label}: wall {wall:.4f}s, device busy {busy:.4f}s, "
           f"device idle share {1 - busy / wall:.3f}, "
-          f"{sum(e.count for e in rows)} device kernels; "
-          + ", ".join(f"{k} {v:.4f}s" for k, v in split.items()), flush=True)
+          f"{sum(n for _, _, n in rows)} device kernels; "
+          + ", ".join(f"{k} {v:.4f}s" for k, v in shown.items()), flush=True)
+    if scopes:
+        print(f"   ({nodes} backward nodes traced to a scope; the trace read "
+              f"in {time.perf_counter() - t0:.2f}s)", flush=True)
     if not rows:
         print("   the profiler recorded no device time: the split is not "
               "measured", flush=True)
-    for e in sorted(rows, key=dev_us, reverse=True)[:top]:
-        print(f"   device {dev_us(e) / 1e3:10.2f} ms  {e.count:6d} calls  "
-              f"{e.key[:90]}", flush=True)
+    for name, us, n in sorted(rows, key=lambda r: r[1], reverse=True)[:top]:
+        print(f"   device {us / 1e3:10.2f} ms  {n:6d} calls  {name[:90]}",
+              flush=True)
 
 
 def reaches_kernel(cfg) -> bool:
@@ -2617,6 +2727,14 @@ TRAIN = dict(steps=30, batch=8, seq=128)  # the reference trainer's defaults
 TRAIN_BATCHES = 64  # batch_fn's cycle: the batches a run of train_loop uses
 TRAIN_FAIL_AT = 27  # replayed from train_loop's checkpoint at step 25
 TRAIN_CKPT_EVERY = 25
+# slice 16: the archs besides qwen2.5-3b whose AdamW state fits one card at
+# full depth, and each f32 card == CPU step's cut (layers, batch, tokens):
+# 512 tokens are two SSD chunks of 256, so the step runs the backward of
+# the inter-chunk recurrence, which train_loop's 128 (one chunk) never
+# reach; zamba2 at 12 layers uses its shared block in two layers
+TRAIN_ARCHS = ("zamba2-1.2b", "mamba2-370m", "hubert-xlarge")
+TRAIN_F32_CUTS = {"zamba2-1.2b": (12, 1, 512), "mamba2-370m": (4, 1, 512),
+                  "hubert-xlarge": (4, 2, 256)}
 
 
 def batches_digest(batches) -> str:
@@ -2664,8 +2782,9 @@ def train_pipeline(tr, launches, dev, clock_mods) -> dict:
     return counts
 
 
-def train_memory(tr, cfg) -> dict:
+def train_memory(tr, arch: str = LM_ARCH) -> dict:
     """The full-width run's memory reckoning, from the abstract state."""
+    cfg = tr.get_arch(arch)
     state = tr.abstract_train_state(cfg)
     size = lambda ts: sum(t.numel() * t.element_size() for t in ts)
     params = list(state["params"].parameters())
@@ -2678,16 +2797,21 @@ def train_memory(tr, cfg) -> dict:
     return out
 
 
-def train_full_width(tr, launches, dev) -> dict:
-    """``train_loop`` on qwen2.5-3b at full width and depth (bf16, AdamW,
+def train_full_width(tr, launches, dev, fa, arch: str = LM_ARCH) -> dict:
+    """``train_loop`` on ``arch`` at full width and depth (bf16, AdamW,
     ``remat="full"``), 30 steps on the QUIP stream, with the launch
     counters set to 0 just before and read just after.  Gates: every loss
-    finite, the mean of the last 5 below the first, the step counter at
-    30, bloom launches > 0.  Prints seconds per step, tokens/s, the peak
-    memory beside its reckoning, then profiles one more step."""
-    cfg = tr.get_arch(LM_ARCH)
-    mem = train_memory(tr, cfg)
-    print(f"   {LM_ARCH}: {cfg.n_layers} layers, {cfg.num_params():,} "
+    and every step's gnorm finite, the mean of the last 5 losses below the
+    first, the step counter at 30, bloom launches > 0, no flash-attention
+    launch (the kernel has no backward: a step runs the plain path), every
+    parameter finite after the last step.  Prints seconds per step,
+    tokens/s, the peak memory beside its reckoning, then profiles one more
+    step (on an ``embeds`` batch for a family fed embeddings), the plain
+    attention's and the SSD scan's kernels split out.  Returns the launch
+    counts and the printed figures."""
+    cfg = tr.get_arch(arch)
+    mem = train_memory(tr, arch)
+    print(f"   {arch}: {cfg.n_layers} layers, {cfg.num_params():,} "
           f"parameters, {cfg.dtype}; reckoning "
           + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in mem.items()),
           flush=True)
@@ -2696,114 +2820,214 @@ def train_full_width(tr, launches, dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     launches.reset()
+    fa.launches = 0
     out = tr.train_loop(cfg, device=dev, log_every=10, **TRAIN)
     counts = launches.read()
+    flash = fa.launches
     peak = torch.cuda.max_memory_allocated()
-    losses = out["losses"]
+    losses, gnorms = out["losses"], out["gnorms"]
     if len(losses) != TRAIN["steps"] or not np.isfinite(losses).all():
         raise AssertionError(f"full-width losses {losses}")
     if not np.mean(losses[-5:]) < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
+    if len(gnorms) != TRAIN["steps"] or not np.isfinite(gnorms).all():
+        raise AssertionError(f"full-width gnorms {gnorms}")
     if int(out["state"]["step"]) != TRAIN["steps"]:
         raise AssertionError("the step counter is not at 30")
     if counts["bloom_probe"] <= 0:
         raise AssertionError("train_loop's pipeline launched no bloom probe")
+    if flash:
+        raise AssertionError(f"train_loop launched the flash-attention "
+                             f"kernel {flash} times")
+    state = out["state"]
+    named = dict(state["params"].named_parameters())
+    bad = [n for n, p in named.items() if not bool(torch.isfinite(p).all())]
+    if bad:
+        raise AssertionError(f"{len(bad)} parameters hold a non-finite "
+                             f"value after the run: {bad[:8]}")
     sec = float(np.median(out["step_seconds"][5:]))
     tokens = TRAIN["batch"] * TRAIN["seq"]
+    first_s = out["step_seconds"][0]
     print(f"   losses {losses[0]:.4f} -> {losses[-1]:.4f} (mean of the "
           f"last 5 {np.mean(losses[-5:]):.4f}); {sec:.4f} s/step (median "
           f"of steps 5-30), {tokens / sec:.1f} tokens/s; first step "
-          f"{out['step_seconds'][0]:.3f}s; wall {out['seconds']:.2f}s; "
+          f"{first_s:.3f}s; wall {out['seconds']:.2f}s; "
           f"peak {peak / 1e9:.2f} GB (max_memory_allocated; {base / 1e9:.2f} "
           f"GB held before the run) against {mem['sum'] / 1e9:.2f} GB "
           f"reckoned; bloom launches "
           f"{counts['bloom_probe']}", flush=True)
+    print(f"   gnorm {gnorms[0]:.4g} -> {gnorms[-1]:.4g} (largest "
+          f"{max(gnorms):.4g}), finite at every step; all {len(named)} "
+          f"parameters finite after step {TRAIN['steps']}; flash_attention "
+          f"launches {flash}", flush=True)
     step = tr.build_train_step(cfg, warmup=20, total_steps=TRAIN["steps"])
     g = torch.Generator(device=dev).manual_seed(5)
-    batch = {k: torch.randint(0, cfg.vocab, (TRAIN["batch"], TRAIN["seq"]),
-                              generator=g, device=dev, dtype=torch.int32)
-             for k in ("tokens", "labels")}
-    state = out["state"]
-    profile_lm("bf16 train step", lambda: step(state, batch)[1]["loss"]
-               .item(), top=8)
-    del out, state, step
+    shape = (TRAIN["batch"], TRAIN["seq"])
+    ids = lambda: torch.randint(0, cfg.vocab, shape, generator=g, device=dev,
+                                dtype=torch.int32)
+    if tr.uses_embeds(cfg):
+        batch = {"embeds": torch.randn(shape + (cfg.d_model,), generator=g,
+                                       device=dev)}
+    else:
+        batch = {"tokens": ids()}
+    batch["labels"] = ids()
+    profile_lm(f"{arch} bf16 train step ({', '.join(batch)})",
+               lambda: step(state, batch)[1]["loss"].item(), top=8,
+               scopes=tr.scopes)
+    del out, state, named, step
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return {"counts": counts, "s_per_step": sec, "tokens_per_s": tokens / sec,
+            "first_step_s": first_s, "peak": peak, "reckoned": mem["sum"]}
 
 
-def train_f32_card_vs_cpu(tr, dev) -> None:
-    """qwen2.5-3b's widths at 2 layers in float32 (TF32 off), the same
-    weights made on the CPU and copied to the card: one ``build_train_step``
-    step on each.  Gates: loss within rtol 1e-5, gnorm within rtol 1e-4;
-    the clipped gradients (``loss_and_grads`` and the clip, as the step
-    runs them) within rtol 1e-4 plus atol 1e-5 of each leaf's largest
-    |gradient|; every updated parameter within atol 1e-6 of the CPU's,
-    except where the two gradients differ by half the CPU's or more:
-    AdamW's first update is ``lr * g / (|g| + 1e-8)``, about ``±lr``
-    wherever ``|g| >> 1e-8``, so a gradient whose true value is near zero
-    (qwen's key bias on the slowest rotary frequencies) moves its
-    parameter by up to ``2 * lr`` on its f32 rounding noise alone.  There
-    the gate is ``2 * lr + 1e-6``."""
+def float64_clipped_grads(tr, cfg, model, batch) -> dict:
+    """The gradients of one step of ``model`` on the CPU in float64 (the
+    model converted in place; its ``.float()`` casts kept in float64, as
+    the CPU twins' float64 runs), clipped by their own float64 norm to 1,
+    as the step clips.  Without remat: every policy gives the same values,
+    and the recomputation would add a quarter to the time."""
+    to_f32 = torch.Tensor.float
+    keep64 = lambda t, *a, **k: (t if t.dtype == torch.float64
+                                 else to_f32(t, *a, **k))
+    with patched(torch.Tensor, "float", keep64):
+        _, grads = tr.loss_and_grads(model.double(), cfg, batch, "none")
+    norm = float(torch.sqrt(sum((g * g).sum() for g in grads.values())))
+    scale = min(1.0, 1.0 / max(norm, 1e-12))
+    return {k: g * scale for k, g in grads.items()}
+
+
+def grads_within(got: dict, want: dict, rtol: float, atol_share: float
+                 ) -> tuple:
+    """Each leaf of ``got`` against ``want``'s within ``rtol`` plus
+    ``atol_share`` of the leaf's largest |value|: the leaves that miss,
+    and the largest difference as a share of its leaf's largest, with that
+    leaf's name."""
+    bad, worst, leaf = [], 0.0, ""
+    for k, w in want.items():
+        top = float(w.abs().max())
+        d = (got[k].to(w.dtype) - w).abs()
+        if bool((d > rtol * w.abs() + atol_share * top).any()):
+            bad.append(k)
+        if top and float(d.max()) / top > worst:
+            worst, leaf = float(d.max()) / top, k
+    return bad, worst, leaf
+
+
+def train_f32_card_vs_cpu(tr, dev, arch: str = LM_ARCH, layers: int = 2,
+                          batch: int = 2, seq: int = 64) -> str:
+    """``arch``'s widths at ``layers`` layers in float32 (TF32 off), the
+    same weights drawn on the card and copied to the CPU: one
+    ``build_train_step`` step on each, on ``batch`` x ``seq`` tokens (for a
+    family fed embeddings, ``embeds`` drawn on the CPU from a seed and
+    copied).  Gates: loss within rtol 1e-5, gnorm within rtol 1e-4; the
+    clipped gradients (those the step applies, taken from its clip)
+    within rtol 1e-4 plus atol 1e-5 of each leaf's largest |gradient|;
+    every updated parameter within atol 1e-6 of the CPU's, except where
+    the two gradients differ by half the CPU's or more: AdamW's first
+    update is ``lr * g / (|g| + 1e-8)``, about ``±lr`` wherever ``|g| >>
+    1e-8``, so a gradient whose true value is near zero (qwen's key bias
+    on the slowest rotary frequencies) moves its parameter by up to ``2 *
+    lr`` on its f32 rounding noise alone.  There the gate is ``2 * lr +
+    1e-6``.
+
+    Where a clipped gradient misses its bound, the bound is not widened:
+    float32 may not reach it (zamba2's at 14 layers, as its CPU twin
+    shows; on the card zamba2's at 12 layers and mamba2's at 4, both at
+    512 tokens).  A float64 gradient of the same step on the CPU
+    (``float64_clipped_grads``) then anchors both: the card's and the
+    CPU's float32 clipped gradients must each be within rtol 1e-4 plus
+    2e-3 of each leaf's largest of it (the CPU twin's bound).  Returns
+    which gradient gate ran."""
     import copy
 
-    cfg = dataclasses.replace(tr.get_arch(LM_ARCH), n_layers=2,
+    cfg = dataclasses.replace(tr.get_arch(arch), n_layers=layers,
                               dtype="float32")
-    cpu_model = tr.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
-    card_model = copy.deepcopy(cpu_model).to(dev)
+    start = tr.init_params(cfg, torch.Generator(device=dev).manual_seed(3),
+                           dev)
+    card_model = copy.deepcopy(start)
+    cpu_model = copy.deepcopy(start).to("cpu")
     rng = np.random.default_rng(3)
-    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64))
-                                 .astype(np.int32))
-             for k in ("tokens", "labels")}
-    card_batch = {k: v.to(dev) for k, v in batch.items()}
-    grads = {}
-    for where, model, b in (("cpu", cpu_model, batch),
-                            ("card", card_model, card_batch)):
-        _, g = tr.loss_and_grads(model, cfg, b, "full")
-        g, _ = tr.clip_by_global_norm(g, 1.0)
-        grads[where] = {k: v.detach().cpu() for k, v in g.items()}
+    ids = lambda: torch.from_numpy(rng.integers(0, cfg.vocab, (batch, seq))
+                                   .astype(np.int32))
+    if tr.uses_embeds(cfg):
+        host = {"embeds": torch.from_numpy(rng.normal(
+            0, 1, (batch, seq, cfg.d_model)).astype(np.float32))}
+    else:
+        host = {"tokens": ids()}
+    host["labels"] = ids()
+    card_batch = {k: v.to(dev) for k, v in host.items()}
+    grads, metrics, secs = {}, {}, {}
     step = tr.build_train_step(cfg)
-    t0 = time.perf_counter()
-    _, mc = step(tr.init_train_state(cfg, cpu_model), batch)
-    cpu_s = time.perf_counter() - t0
-    _, mg = step(tr.init_train_state(cfg, card_model), card_batch)
+    clip = tr.steps.clip_by_global_norm
+    for where, model, b in (("cpu", cpu_model, host),
+                            ("card", card_model, card_batch)):
+        def clip_kept(g, max_norm, where=where):
+            out = clip(g, max_norm)
+            grads[where] = {k: v.detach().cpu() for k, v in out[0].items()}
+            return out
+
+        with patched(tr.steps, "clip_by_global_norm", clip_kept):
+            t0 = time.perf_counter()
+            _, metrics[where] = step(tr.init_train_state(cfg, model), b)
+            float(metrics[where]["loss"])
+            secs[where] = time.perf_counter() - t0
+    mc, mg = metrics["cpu"], metrics["card"]
     rel = {k: abs(float(mg[k]) - float(mc[k])) / abs(float(mc[k]))
            for k in ("loss", "gnorm")}
     lr = float(mg["lr"])
-    grad_err, grad_leaf, bad, diff, near_zero, near_diff = 0.0, "", [], \
-        0.0, 0, 0.0
+    grad_bad, grad_err, grad_leaf = grads_within(grads["card"], grads["cpu"],
+                                                 1e-4, 1e-5)
+    bad, diff, near_zero, near_diff = [], 0.0, 0, 0.0
     card_params = dict(card_model.named_parameters())
     for k, p in cpu_model.named_parameters():
-        gc, gg = grads["cpu"][k], grads["card"][k]
-        tol = 1e-4 * gc.abs() + 1e-5 * float(gc.abs().max())
-        d = (gg - gc).abs()
-        if bool((d > tol).any()):
-            bad.append(f"{k} gradient")
-        if float(gc.abs().max()) and float(d.max() / gc.abs().max()) \
-                > grad_err:
-            grad_err, grad_leaf = float(d.max() / gc.abs().max()), k
+        gc_, d = grads["cpu"][k], (grads["card"][k] - grads["cpu"][k]).abs()
         dp = (card_params[k].detach().cpu() - p.detach()).abs()
-        near = (d > 0) & (d >= 0.5 * gc.abs())
+        near = (d > 0) & (d >= 0.5 * gc_.abs())
         near_zero += int(near.sum())
         far_d = float(torch.where(near, 0.0, dp).max())
         near_d = float(torch.where(near, dp, 0.0).max())
         if far_d > 1e-6 or near_d > 2 * lr + 1e-6:
             bad.append(f"{k} parameters")
         diff, near_diff = max(diff, far_d), max(near_diff, near_d)
-    line = (f"f32 step, {cfg.num_params():,} parameters, batch 2 x 64: "
+    shape = "x".join(map(str, host["embeds" if "embeds" in host
+                                    else "tokens"].shape))
+    line = (f"{arch} f32 step, {layers} layers, {cfg.num_params():,} "
+            f"parameters, batch {shape}: "
             f"loss {float(mg['loss']):.6f} (card) / {float(mc['loss']):.6f} "
             f"(CPU), rel {rel['loss']:.3g}; gnorm rel {rel['gnorm']:.3g}; "
             f"largest clipped-gradient difference {grad_err:.3g} of its "
             f"leaf's largest ({grad_leaf}); largest |parameter difference| "
             f"{diff:.3g}; {near_zero} parameters whose gradients differ by half "
             f"or more, at most {near_diff:.3g} apart (lr {lr:.3g}); "
-            f"CPU step {cpu_s:.2f}s")
+            f"CPU step {secs['cpu']:.2f}s, card step {secs['card']:.2f}s")
     print("   " + line, flush=True)
+    gate = "card == CPU (rtol 1e-4 + 1e-5 of the leaf's largest)"
+    if grad_bad:
+        t0 = time.perf_counter()
+        wide = float64_clipped_grads(tr, cfg, start.to("cpu"), host)
+        anchored = {where: grads_within(grads[where], wide, 1e-4, 2e-3)
+                    for where in ("card", "cpu")}
+        print(f"   {len(grad_bad)} clipped gradients miss card == CPU at "
+              f"rtol 1e-4 + 1e-5 of the leaf's largest; against a float64 "
+              f"step on the CPU ({time.perf_counter() - t0:.2f}s): card "
+              f"{anchored['card'][1]:.3g} ({anchored['card'][2]}), CPU "
+              f"{anchored['cpu'][1]:.3g} ({anchored['cpu'][2]}) of the "
+              f"leaf's largest, bound rtol 1e-4 + 2e-3 of the leaf's "
+              f"largest", flush=True)
+        bad += [f"{k} gradient (card, against float64)"
+                for k in anchored["card"][0]]
+        bad += [f"{k} gradient (CPU, against float64)"
+                for k in anchored["cpu"][0]]
+        gate = ("float64-anchored (card and CPU each within rtol 1e-4 + 2e-3 "
+                "of the leaf's largest of a float64 step)")
+    print(f"   gradient gate: {gate}", flush=True)
     if rel["loss"] > 1e-5 or rel["gnorm"] > 1e-4 or bad:
         raise AssertionError(f"the card's f32 step differs from the CPU's "
                              f"({', '.join(bad) or 'loss or gnorm'}): {line}")
-    del card_model
+    del start, card_model
     torch.cuda.empty_cache()
+    return gate
 
 
 def train_fault_replay(tr, dev) -> None:
@@ -2865,6 +3089,52 @@ def checkpoint_crossing(tr, cfg, state, dev) -> None:
     if step != int(state["step"]) or len(got) != len(want) or unequal:
         raise AssertionError("the reference-layout checkpoint did not come "
                              "back equal")
+
+
+def train_phases(tr, launches, dev, fa, clock_mods) -> dict:
+    """Slice 10's four phases on qwen2.5-3b, then slice 16's, one for each
+    of ``TRAIN_ARCHS``: ``train_loop`` at full width and depth and one f32
+    step card == CPU at the arch's cut (``TRAIN_F32_CUTS``).  Returns the
+    launch counts of each run that drove the QUIP stream (the pipeline's
+    kernel run, then each ``train_loop``), each arch's figures and the
+    gradient gate each f32 step ran."""
+    t0 = time.perf_counter()
+    with phase("train (slice 10): the trainer's QUIP stream on the card, "
+               "kernel == plain"):
+        pipe = train_pipeline(tr, launches, dev, clock_mods)
+    with phase(f"train (slice 10): {LM_ARCH} at full width, train_loop "
+               f"{TRAIN}"):
+        runs = {LM_ARCH: train_full_width(tr, launches, dev, fa)}
+    with phase(f"train (slice 10): one f32 step at {LM_ARCH}'s widths, "
+               f"2 layers, card == CPU"):
+        gates = {LM_ARCH: train_f32_card_vs_cpu(tr, dev)}
+    with phase(f"train (slice 10): a failure at step {TRAIN_FAIL_AT} "
+               f"replayed on the card"):
+        train_fault_replay(tr, dev)
+    print(f"   train (slice 10): {time.perf_counter() - t0:.1f}s for "
+          f"its four phases", flush=True)
+    t0 = time.perf_counter()
+    for arch in TRAIN_ARCHS:
+        layers, batch, seq = TRAIN_F32_CUTS[arch]
+        with phase(f"train (slice 16): {arch} at full width and depth, "
+                   f"train_loop {TRAIN}; one f32 step at {layers} layers, "
+                   f"{batch} x {seq}, card == CPU"):
+            runs[arch] = train_full_width(tr, launches, dev, fa, arch)
+            gates[arch] = train_f32_card_vs_cpu(tr, dev, arch, layers, batch,
+                                                seq)
+    print(f"   train (slice 16): {time.perf_counter() - t0:.1f}s for its "
+          f"{len(TRAIN_ARCHS)} phases", flush=True)
+    return {"launches": [pipe] + [r["counts"] for r in runs.values()],
+            "runs": runs, "gates": gates}
+
+
+def print_train_runs(train: dict) -> None:
+    for arch, run in train["runs"].items():
+        print(f"   train: {arch} {run['s_per_step']:.4f} s/step, "
+              f"{run['tokens_per_s']:.1f} tokens/s, first step "
+              f"{run['first_step_s']:.3f}s, peak {run['peak'] / 1e9:.2f} GB "
+              f"against {run['reckoned'] / 1e9:.2f} GB reckoned; f32 step's "
+              f"gradient gate: {train['gates'][arch]}")
 
 
 # --------------------------------------------------------------------------- #
@@ -4081,9 +4351,11 @@ def main() -> int:
     kernels_only = sys.argv[1:] == ["--kernels"]
     dryrun_only = sys.argv[1:] == ["--dryrun"]
     slice15_only = sys.argv[1:] == ["--slice15"]
-    if sys.argv[1:] and not (kernels_only or dryrun_only or slice15_only):
+    train_only = sys.argv[1:] == ["--train"]
+    if sys.argv[1:] and not (kernels_only or dryrun_only or slice15_only
+                             or train_only):
         print("usage: python3 chip_smoke.py [--kernels | --dryrun | "
-              "--slice15]", file=sys.stderr)
+              "--slice15 | --train]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs a "
@@ -4117,13 +4389,13 @@ def main() -> int:
         from repro_torch.models import (LM, decode_step, init_caches,
                                         init_params, prefill, uses_embeds)
         from repro_torch.models import attention as attn_mod
+        from repro_torch.models import mamba as mamba_mod
         from repro_torch.models import moe as moe_mod
         from repro_torch.models.transformer import layer_specs
         from repro_torch.launch.mesh import make_host_mesh
         from repro_torch.runtime.elastic import place_state, reshard_state
         from repro_torch.sharding.axes import distribute, param_specs
         from repro_torch.analysis import lint
-        from repro_torch.optim import clip_by_global_norm
         from repro_torch.checkpoint import (restore_reference_checkpoint,
                                             save_reference_checkpoint,
                                             tree_leaves)
@@ -4154,8 +4426,11 @@ def main() -> int:
         build_train_step=train_steps.build_train_step,
         build_serve_step=train_steps.build_serve_step,
         loss_and_grads=train_steps.loss_and_grads,
-        clip_by_global_norm=clip_by_global_norm,
-        init_train_state=train_steps.init_train_state,
+        init_train_state=train_steps.init_train_state, steps=train_steps,
+        uses_embeds=uses_embeds,
+        scopes=(("attention (plain path)", attn_mod, "flash_attention", True),
+                ("the scan's elementwise work", mamba_mod, "_ssd_chunk_scan",
+                 False)),
         save_reference_checkpoint=save_reference_checkpoint,
         restore_reference_checkpoint=restore_reference_checkpoint,
         tree_leaves=tree_leaves)
@@ -4193,6 +4468,10 @@ def main() -> int:
         with phase("flash_attention against its plain version"):
             check_attention(dev, fa, kref)
         slice15(dev, lm, fa, kref)
+        print(card)
+        return 0
+    if train_only:  # slice 10's and slice 16's training phases alone
+        train_phases(tr, launches, dev, fa, mods[2])
         print(card)
         return 0
     with phase("data"):
@@ -4386,21 +4665,7 @@ def main() -> int:
         lm_run = lm_bf16_run(dev, lm, fa)
         lm_launches = lm_run["launches"]
     torch.cuda.empty_cache()
-    t_train = time.perf_counter()
-    with phase("train (slice 10): the trainer's QUIP stream on the card, "
-               "kernel == plain"):
-        train_pipe = train_pipeline(tr, launches, dev, mods[2])
-    with phase(f"train (slice 10): {LM_ARCH} at full width, train_loop "
-               f"{TRAIN}"):
-        train_full = train_full_width(tr, launches, dev)
-    with phase(f"train (slice 10): one f32 step at {LM_ARCH}'s widths, "
-               f"2 layers, card == CPU"):
-        train_f32_card_vs_cpu(tr, dev)
-    with phase(f"train (slice 10): a failure at step {TRAIN_FAIL_AT} "
-               f"replayed on the card"):
-        train_fault_replay(tr, dev)
-    print(f"   train (slice 10): {time.perf_counter() - t_train:.1f}s for "
-          f"its four phases", flush=True)
+    train = train_phases(tr, launches, dev, fa, mods[2])
     t_ssm = time.perf_counter()
     with phase("quiplint (slice 11): lint_repo() over the checkout"):
         lint_clean(lint)
@@ -4415,7 +4680,7 @@ def main() -> int:
     # the training path's two runs, each read with its counters set to 0
     # just before it, join the QUIP paths' launches
     for k in main_launches:
-        main_launches[k] += train_pipe[k] + train_full[k]
+        main_launches[k] += sum(counts[k] for counts in train["launches"])
 
     with phase("kernel times at the main path's shapes"):
         if rec["bloom_folded_calls"]:
@@ -4542,8 +4807,9 @@ def main() -> int:
         print(f"   served {name}: {summ['queries']} queries, wall "
               f"{wall:.3f}s, p50 {summ['p50_latency_s']:.3f}s, p95 "
               f"{summ['p95_latency_s']:.3f}s")
-    print(f"   slice 10 launches: pipeline {train_pipe}, full-width "
-          f"train_loop {train_full}")
+    print(f"   slice 10 launches: pipeline {train['launches'][0]}, "
+          f"full-width train_loop {train['launches'][1]}")
+    print_train_runs(train)
     print(f"   slice 11: {SSM_ARCH} serve_batch {SERVE} "
           f"{ssm_served['tok_per_s']:.1f} tok/s (decode "
           f"{ssm_served['decode_s']:.3f}s)")

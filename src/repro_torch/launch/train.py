@@ -54,8 +54,9 @@ def train_loop(cfg, steps: int, batch: int, seq: int,
                device="cuda") -> Dict[str, Any]:
     """``steps`` train steps of ``cfg`` from random weights (seed 0) on
     QUIP-cleaned batches, with checkpoint/restart under ``ckpt_dir``.
-    Returns the losses and each step's seconds (a replayed step is logged
-    again), the restarts, the wall seconds and the final state."""
+    Returns the losses, pre-clip gradient norms and each step's seconds (a
+    replayed step is logged again), the restarts, the wall seconds and the
+    final state."""
     dev = resolve_device(device)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          device=dev)
@@ -81,7 +82,7 @@ def train_loop(cfg, steps: int, batch: int, seq: int,
         return batches[i % 64]
 
     monitor = StragglerMonitor(n_ranks=1)
-    losses, step_seconds = [], []
+    losses, gnorms, step_seconds = [], [], []
     t_start = time.time()
 
     def stepper(state, batch_t):
@@ -91,6 +92,7 @@ def train_loop(cfg, steps: int, batch: int, seq: int,
         dt = time.time() - t0
         monitor.observe(len(losses), np.full(1, dt))
         losses.append(loss)
+        gnorms.append(metrics["gnorm"].item())
         step_seconds.append(dt)
         if len(losses) % log_every == 0:
             print(f"step {len(losses):4d}  loss {loss:.4f}  "
@@ -113,6 +115,7 @@ def train_loop(cfg, steps: int, batch: int, seq: int,
         "final_loss": losses[-1] if losses else None,
         "first_loss": losses[0] if losses else None,
         "losses": losses,
+        "gnorms": gnorms,
         "step_seconds": step_seconds,
         "restarts": restarts,
         "seconds": time.time() - t_start,

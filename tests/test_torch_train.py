@@ -18,6 +18,8 @@ update ``g / (|g| + 1e-8)`` turns noise of 1e-10 into a step of up to
 from __future__ import annotations
 
 import dataclasses
+import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -370,29 +372,56 @@ def test_cuda_attention_has_no_backward():
 SCHEDULE = dict(warmup=20, total_steps=30)  # launch/train.py's, at 30 steps
 
 
-def schedule_runs(steps: int = 30):
-    """The reduced qwen2.5-3b (float32) trained ``steps`` steps at the
-    trainer's schedule on the reference's QUIP stream (batch 8 x 128) from
-    the reference's initial state, in both packages' ``build_train_step``:
-    the reference (jitted, no mesh); the port with the reference's state
-    carried in before each step ("synced"); the port on its own ("free").
-    Returns each run's per-step (loss, pre-clip gnorm) lists."""
+@functools.lru_cache(maxsize=4)
+def _stream_batches(vocab: int, n: int, batch: int, seq: int) -> tuple:
+    """The reference's QUIP stream's first ``n`` batches (it reads only the
+    config's vocabulary); kept, since every reduced arch's is the same."""
     from repro.launch.train import quip_batch_stream
 
-    cfg = jax_get_arch("qwen2.5-3b").reduced()
-    stream = quip_batch_stream(cfg, 8, 128)
-    batches = [next(stream) for _ in range(steps)]
+    stream = quip_batch_stream(types.SimpleNamespace(vocab=vocab), batch, seq)
+    return tuple(next(stream) for _ in range(n))
+
+
+def trainer_batches(cfg, n: int, batch: int = 8, seq: int = 128):
+    """The first ``n`` batches of both trainers' ``batch_fn``: the
+    reference's QUIP stream, and for a family fed embeddings the stream's
+    labels with ``embeds`` drawn from ``default_rng(i)`` for batch ``i``."""
+    out = []
+    for i, b in enumerate(_stream_batches(cfg.vocab, n, batch, seq)):
+        if uses_embeds(cfg):
+            b = {"embeds": np.random.default_rng(i).normal(
+                0, 1, (batch, seq, cfg.d_model)).astype(np.float32),
+                "labels": b["labels"]}
+        out.append(b)
+    return out
+
+
+def schedule_runs(steps: int = 30, arch: str = "qwen2.5-3b", **overrides):
+    """The reduced ``arch`` (float32; ``overrides`` replace fields of its
+    reduced config) trained ``steps`` steps at the trainer's schedule on
+    the trainers' batches (``trainer_batches``, 8 x 128) from the
+    reference's initial state, in both packages' ``build_train_step``:
+    the reference (jitted, no mesh); the port with the reference's state
+    carried in before each step ("synced"); the port on its own ("free").
+    Returns each run's per-step (loss, pre-clip gnorm) lists, under
+    ``"states"`` the reference's state (numpy leaves) before each step and
+    under ``"batches"`` the batches."""
+    cfg = dataclasses.replace(jax_get_arch(arch).reduced(), **overrides)
+    batches = trainer_batches(cfg, steps)
     ref_state = RS.init_train_state(cfg, jax_init_params(
         cfg, jax.random.PRNGKey(0)))
     ref_step = jax.jit(RS.build_train_step(cfg, **SCHEDULE))
-    port_step = S.build_train_step(config_from_reference(cfg), **SCHEDULE)
-    synced = train_state_from_reference(_numpy(ref_state), cfg, device="cpu")
-    free = train_state_from_reference(_numpy(ref_state), cfg, device="cpu")
-    runs = {"reference": [], "synced": [], "free": []}
+    runs = {"reference": [], "synced": [], "free": [], "states": [],
+            "batches": batches}
     for batch in batches:
-        load_reference_state(synced, _numpy(ref_state))
+        runs["states"].append(_numpy(ref_state))
         ref_state, m = ref_step(ref_state, _to_jax(batch))
         runs["reference"].append((float(m["loss"]), float(m["gnorm"])))
+    port_step = S.build_train_step(config_from_reference(cfg), **SCHEDULE)
+    synced = train_state_from_reference(runs["states"][0], cfg, device="cpu")
+    free = train_state_from_reference(runs["states"][0], cfg, device="cpu")
+    for batch, before in zip(batches, runs["states"]):
+        load_reference_state(synced, before)
         for name, state in (("synced", synced), ("free", free)):
             _, m = port_step(state, _to_port(batch))
             runs[name].append((float(m["loss"]), float(m["gnorm"])))
@@ -449,6 +478,7 @@ def test_train_loop_runs_on_the_cpu(capsys):
                      log_every=1)
     assert len(out["losses"]) == 3 and out["restarts"] == 0
     assert all(np.isfinite(out["losses"]))
+    assert len(out["gnorms"]) == 3 and all(np.isfinite(out["gnorms"]))
     assert out["first_loss"] == out["losses"][0]
     assert int(out["state"]["step"]) == 3
     assert "step    3" in capsys.readouterr().out
