@@ -110,8 +110,10 @@ fresh state, every leaf equal.  mamba2-370m, the SSM path, runs at full
 width and depth (48 layers, d_model 1024, 32 SSD heads, state 128, random
 weights from seed 0): a float32 prefill of 1 x 512 tokens (two chunks of
 256, so the state crosses a chunk boundary) on the card against the same
-on the CPU, and decode over those 512 tokens against the prefill, each
-within 1e-3 of the largest logit with the same argmax; its parameter count
+on the CPU, and decode over 512 tokens against the prefill at 12 layers
+(other weights from a seed: a decode step's host dispatch grows with the
+depth), each within 1e-3 of the largest logit with the same argmax; its
+parameter count
 must equal the reference's; in bfloat16 ``serve_batch`` serves 4 prompts
 of 128 tokens with 32 greedy tokens each (timed), and one decode step is
 profiled.  The SSM path runs no hand-written kernel (the reference's scan
@@ -124,7 +126,8 @@ attention + MLP block whose weights six layers share, random weights from
 seed 0) in float32: its parameter counts against the reference's, a 1 x
 512 prefill on the card with ``attn_impl="cuda"`` (the CUDA-core kernel at
 D 64 in its 6 attention layers) against the CPU's plain path, and decode
-over the 512 tokens against the prefill; in bfloat16 the kernel and plain
+over 512 tokens against the prefill at 12 layers (two uses of the shared
+block); in bfloat16 the kernel and plain
 prefills at 2 x 4096, timed and profiled, ``serve_batch`` and a profiled
 decode step.  The bfloat16 prefills' logits are compared but not gated for
 the SSM and MoE archs (one rounding of difference grows through bfloat16
@@ -225,14 +228,35 @@ SSD scan's elementwise work and the rest.  Then one float32 step card ==
 CPU at a cut depth (zamba2 12 layers and mamba2 4 at 1 x 512: two SSD
 chunks, so the inter-chunk recurrence's backward runs; hubert 4 at 2 x
 256) under slice 10's gates; where a clipped gradient misses slice 10's
-bound, a float64 step on the CPU anchors both the card's and the CPU's
+bound, a float64 step (on the card: the gate holds the card's and the
+CPU's gradients alike against it) anchors both the card's and the CPU's
 gradients (rtol 1e-4 plus 2e-3 of each leaf's largest), and the phase
-prints which gate ran.  ``python3 chip_smoke.py --train`` runs slice
-10's and slice 16's phases alone.
+prints which gate ran.
+
+Slice 17 trains the MoE block and MLA, two phases each after slice 16's,
+at full width with the depth cut to what one card holds:
+moonshot-v1-16b-a3b at 6 layers (its dense layer and 5 MoE layers,
+3,360,817,152 parameters) and deepseek-v3-671b at its 3 dense MLA layers
+(2,677,080,064), each through ``train_loop`` under slice 16's gates (the
+reckoning adds an MoE layer's dispatch and combine one-hots; the
+profiled step splits out the MoE's einsums or the plain MLA flash).  In
+moonshot's profiled step each MoE layer's routing in its forward must
+equal its recomputation under ``checkpoint``, token for token.  Then one
+float32 step card == CPU: moonshot at 2 layers (1 dense, 1 MoE), 1 x 512,
+its routing in both runs held by ``compare_routes`` (where a token still
+flips at a near tie, the CPU step, and the float64 anchor, run with the
+card's choices imposed through ``route``'s ``gate_idx``; the count is
+printed); deepseek at 1 layer, 1 x 1536 (key chunks of 1,024 and 512:
+the online softmax's rescale has a backward), under Adafactor as the
+reference trains it, its parameters within 1e-6 plus the difference of
+the updates the two gradients imply and its factored statistics within
+rtol 1e-4.  ``python3 chip_smoke.py --train`` runs slice 10's, 16's and
+17's phases alone.
 
 Each configuration runs once through the kernels and once through the plain
 versions, whose answers and imputation counts must agree; slice 2's wifi
-answers must also equal slice 1's.  The last phases check the paper's
+kernel path is held against slice 1's plain run (the same tables, queries
+and imputer), and its answers against slice 1's kernel path.  The last phases check the paper's
 correctness invariant (every QUIP answer equals the offline answer) on the
 generators' default sizes, the compiled answers against the interpreter's
 and the offline answers, and one union, set minus and nested query per
@@ -302,6 +326,10 @@ PLAIN2 = dict(join_impl="ref", agg_impl="ref", impl="ref", bloom_impl="ref")
 # probe is then off the path)
 SLICE3 = dict(SLICE2, exec_impl="compiled", segment_impl="cuda")
 PLAIN3 = dict(PLAIN2, exec_impl="compiled", segment_impl="ref")
+# wifi's slice 3 twin keeps the KNN kernel: its plain version is held
+# against it end to end on wifi's slices 1 and 2 and on cdc's slice 3, and
+# at the main path's shape in the unit phase
+PLAIN3_KNN = dict(PLAIN3, impl=None)
 # the KNN imputer's k: 5 on every path but one, whose k = 33 takes the
 # unfused route (the distance kernel, then smallest_k)
 KNN_K = 5
@@ -1363,7 +1391,14 @@ def time_segment(dev, so, kref, kops, build, vals: torch.Tensor,
 LM_ARCH = "qwen2.5-3b"
 LM_BATCH, LM_SEQ = 2, 4096  # the prefill whose 36 layers call the kernel
 LM_PROMPT = 128  # decode == prefill over this prompt
-SERVE = dict(batch=4, prompt_len=128, gen=32)
+#: serve_batch's request: the launcher's default prompt length (its
+#: prompt is fed by decode steps, one token a step)
+SERVE = dict(batch=4, prompt_len=32, gen=32)
+#: decode steps before a profiled one, at serve_batch's batch and cache
+#: length: the decode attention reads the whole cache under a mask (and an
+#: SSM step its fixed state), so a step's work does not depend on its
+#: position
+DECODE_WARMUP = 16
 # the reference tests' grid (tests/test_kernels.py) and masks
 ATTN_GRID = ((1, 16, 2, 1, 8), (2, 64, 4, 2, 16), (1, 96, 8, 2, 32),
              (2, 100, 4, 4, 16))
@@ -1892,8 +1927,7 @@ def prefill_chunked_naive(lm, fa, model, cfg, batch, watch):
     return chunked, naive, 0
 
 
-def lm_bf16_run(dev, lm, fa, arch: str = LM_ARCH, seed: int = 1,
-                warmup: int = SERVE["prompt_len"]) -> dict:
+def lm_bf16_run(dev, lm, fa, arch: str = LM_ARCH, seed: int = 1) -> dict:
     """``arch`` (qwen2.5-3b) as configured (bf16): the kernel and plain
     prefills, held by :func:`bf16_gate` (for an MoE arch their routing is
     reported, :func:`compare_routes`; an arch whose attention reaches no
@@ -1901,7 +1935,7 @@ def lm_bf16_run(dev, lm, fa, arch: str = LM_ARCH, seed: int = 1,
     :func:`prefill_chunked_naive`), their seconds, one profiled prefill,
     and for a decoder one profiled decode step, then ``serve_batch``.  The
     decode step runs at serve_batch's batch and cache length after
-    ``warmup`` decode steps (its attention reads the whole cache under a
+    ``DECODE_WARMUP`` decode steps (its attention reads the whole cache under a
     mask, so the step's work does not depend on the position).  Returns
     the kernel's launches in one prefill, the attention calls' record
     (:func:`attention_held`; None with no kernel), ``serve_batch``'s
@@ -1954,7 +1988,7 @@ def lm_bf16_run(dev, lm, fa, arch: str = LM_ARCH, seed: int = 1,
             # one decode step at serve_batch's batch and cache length
             caches = lm.init_caches(cfg, b, t + SERVE["gen"], device=dev)
             toks = batch["tokens"][:1, :b].reshape(b, 1)
-            for p in range(warmup):
+            for p in range(DECODE_WARMUP):
                 pos = torch.full((b,), p, dtype=torch.int32, device=dev)
                 lm.decode_step(model, caches, cfg, toks, pos)
             weights = sum(p.numel() * p.element_size()
@@ -1964,7 +1998,7 @@ def lm_bf16_run(dev, lm, fa, arch: str = LM_ARCH, seed: int = 1,
                   f"{weights / HBM_BYTES_PER_S * 1e3:.2f} ms over the memory",
                   flush=True)
             profile_lm(f"{arch} bf16 decode step (batch {b}, position "
-                       f"{warmup}, a cache of {t + SERVE['gen']})",
+                       f"{DECODE_WARMUP}, a cache of {t + SERVE['gen']})",
                        lambda: lm.decode_step(model, caches, cfg, toks,
                                               pos + 1),
                        top=4)
@@ -2217,11 +2251,16 @@ def run_workload(tables, queries, dev, cfg, mods, label: str, quiet=False):
 
 
 def end_to_end(name, tables, queries, dev, mods, launches, kernel_cfg,
-               plain_cfg, expect, label, off_path=()):
+               plain_cfg, expect, label, off_path=(), plain=None,
+               plain_kernels=()):
     """The kernel path of one configuration, with the counters set to
     0 just before it and read just after (every kernel of ``expect``
     launched, none of ``off_path``), then its plain twin, which must launch
-    nothing and give the same answers and imputation counts."""
+    nothing but ``plain_kernels`` and give the same answers and imputation
+    counts.  ``plain``: the results of an earlier run of ``plain_cfg``
+    over the same tables, queries and imputer, held in place of a new run.
+    Returns the launch counts, the kernel path's results and the plain
+    path's."""
     launches.reset()
     kernel = run_workload(tables, queries, dev, kernel_cfg, mods,
                           f"{name} {label} kernels")
@@ -2236,11 +2275,14 @@ def end_to_end(name, tables, queries, dev, mods, launches, kernel_cfg,
         if counts[k] != 0:
             raise AssertionError(f"{name} {label}: kernel {k} is off this "
                                  f"path but launched {counts[k]} times")
-    plain = run_workload(tables, queries, dev, plain_cfg, mods,
-                         f"{name} {label} plain")
-    if launches.read() != counts:
-        raise AssertionError(f"{name} {label}: the plain path launched a "
-                             f"kernel")
+    if plain is None:
+        plain = run_workload(tables, queries, dev, plain_cfg, mods,
+                             f"{name} {label} plain")
+        after = launches.read()
+        if any(after[k] != counts[k] for k in counts
+               if k not in plain_kernels):
+            raise AssertionError(f"{name} {label}: the plain path launched "
+                                 f"a kernel")
     for i, ((rk, _, _), (rp, _, _)) in enumerate(zip(kernel, plain)):
         if rk != rp:
             raise AssertionError(f"{name} {label} q{i}: kernel path "
@@ -2266,9 +2308,12 @@ def end_to_end(name, tables, queries, dev, mods, launches, kernel_cfg,
                     f"from the plain path ({len(b[0])} rows, {b[1]})")
         print(f"   {name} {label}: with the clock stopped both paths make "
               f"{[r[1] for r in fk]} imputations", flush=True)
+    else:
+        print(f"   {name} {label}: the clock-stopped recount did not run "
+              f"(the counts agree with the clock running)", flush=True)
     print(f"   {name} {label}: kernel and plain paths agree on every answer "
           f"and imputation count", flush=True)
-    return counts, kernel
+    return counts, kernel, plain
 
 
 def profile_query(tables, q, dev, mods, cfg, label: str) -> None:
@@ -2735,6 +2780,18 @@ TRAIN_CKPT_EVERY = 25
 TRAIN_ARCHS = ("zamba2-1.2b", "mamba2-370m", "hubert-xlarge")
 TRAIN_F32_CUTS = {"zamba2-1.2b": (12, 1, 512), "mamba2-370m": (4, 1, 512),
                   "hubert-xlarge": (4, 2, 256)}
+# slice 17: the MoE and MLA archs at full width, each cut to the depth whose
+# AdamW state one card holds (moonshot: its dense layer and 5 MoE layers,
+# 40.3 GB reckoned; deepseek: its 3 dense MLA layers, 32.1 GB; a 4th,
+# the first of 256 experts, reckons 170.2 GB), and each f32 card == CPU
+# step's cut (layers, batch, tokens, Adafactor): moonshot's dense layer and
+# one MoE layer; deepseek's first layer under Adafactor, as the reference
+# trains it, at more tokens than attn_k_chunk (1,024), so that the online
+# softmax's rescale across key chunks has a backward (1,536: at 2,048 the
+# CPU step took 62-80 s on the 8-core host of an H100 80GB HBM3)
+TRAIN_CUTS = {"moonshot-v1-16b-a3b": 6, "deepseek-v3-671b": 3}
+TRAIN_CUT_F32 = {"moonshot-v1-16b-a3b": (2, 1, 512, False),
+                 "deepseek-v3-671b": (1, 1, 1536, True)}
 
 
 def batches_digest(batches) -> str:
@@ -2782,9 +2839,24 @@ def train_pipeline(tr, launches, dev, clock_mods) -> dict:
     return counts
 
 
-def train_memory(tr, arch: str = LM_ARCH) -> dict:
-    """The full-width run's memory reckoning, from the abstract state."""
+def arch_cut(tr, arch: str, layers=None):
+    """``arch`` as configured, its depth cut to ``layers`` when given."""
     cfg = tr.get_arch(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def routed_layers(cfg) -> int:
+    """The MoE layers of ``cfg`` (those past its first dense layers)."""
+    return max(cfg.n_layers - cfg.first_dense_layers, 0) if cfg.is_moe \
+        else 0
+
+
+def train_memory(tr, arch: str = LM_ARCH, layers=None) -> dict:
+    """The full-width run's memory reckoning at ``layers`` layers (all
+    when None), from the abstract state; with an MoE layer, also one
+    layer's (G, S, E, C) dispatch and combine one-hots of a batch."""
+    cfg = arch_cut(tr, arch, layers)
     state = tr.abstract_train_state(cfg)
     size = lambda ts: sum(t.numel() * t.element_size() for t in ts)
     params = list(state["params"].parameters())
@@ -2793,26 +2865,123 @@ def train_memory(tr, arch: str = LM_ARCH) -> dict:
            + size(state["opt"]["v"].values()),
            "largest leaf in f32": max(p.numel() for p in params) * 4,
            "f32 logits": TRAIN["batch"] * TRAIN["seq"] * cfg.vocab * 4}
+    if routed_layers(cfg):
+        tokens = TRAIN["batch"] * TRAIN["seq"]
+        g_sz = min(tr.moe.GROUP_SIZE, tokens)
+        cap = max(int(g_sz * cfg.top_k * cfg.capacity_factor
+                      / cfg.n_experts), 1)
+        width = 2 if cfg.moe_bf16_dispatch else 4
+        out["dispatch + combine one-hots"] = \
+            2 * tokens * cfg.n_experts * cap * width
     out["sum"] = sum(out.values())
     return out
 
 
-def train_full_width(tr, launches, dev, fa, arch: str = LM_ARCH) -> dict:
-    """``train_loop`` on ``arch`` at full width and depth (bf16, AdamW,
-    ``remat="full"``), 30 steps on the QUIP stream, with the launch
-    counters set to 0 just before and read just after.  Gates: every loss
-    and every step's gnorm finite, the mean of the last 5 losses below the
-    first, the step counter at 30, bloom launches > 0, no flash-attention
-    launch (the kernel has no backward: a step runs the plain path), every
-    parameter finite after the last step.  Prints seconds per step,
-    tokens/s, the peak memory beside its reckoning, then profiles one more
-    step (on an ``embeds`` batch for a family fed embeddings), the plain
-    attention's and the SSD scan's kernels split out.  Returns the launch
-    counts and the printed figures."""
-    cfg = tr.get_arch(arch)
-    mem = train_memory(tr, arch)
-    print(f"   {arch}: {cfg.n_layers} layers, {cfg.num_params():,} "
-          f"parameters, {cfg.dtype}; reckoning "
+class RouteWatch:
+    """Each MoE call's routing in ``model`` while :meth:`run` is open:
+    ``moe_apply`` wrapped to route as it does (``route`` of the router's
+    probabilities; with ``impose``, a list of (G, S, k) choices by MoE
+    layer, ``route`` with those as its ``gate_idx``) and to pass that
+    routing on; a call on another model's block passes through, so
+    watches nest.  Each call records its layer, probabilities, chosen
+    experts and kept flags, detached.  Under ``remat="full"`` a train step
+    routes each MoE layer twice: its forward, then its recomputation in
+    the backward pass."""
+
+    def __init__(self, moe, model):
+        self.moe = moe
+        self.layers = {id(m): i for i, m in enumerate(
+            m for m in model.modules() if isinstance(m, moe.MoE))}
+        self.calls = []
+
+    @contextlib.contextmanager
+    def run(self, impose=None):
+        moe, real = self.moe, self.moe.moe_apply
+
+        def watched(p, cfg, x, routing=None):
+            if id(p) not in self.layers:  # another model's, or another watch's
+                return real(p, cfg, x, routing=routing)
+            if routing is not None:
+                raise AssertionError("RouteWatch: a call came with its own "
+                                     "routing")
+            layer = self.layers[id(p)]
+            probs = moe.router_probs(p, moe.groups(x))
+            r = moe.route(probs, cfg, gate_idx=None if impose is None
+                          else impose[layer].to(probs.device))
+            self.calls.append((layer, probs.detach().clone(),
+                               r.gate_idx.clone(), r.keep.clone()))
+            return real(p, cfg, x, routing=r)
+
+        with patched(moe, "moe_apply", watched):
+            yield self
+
+    def by_layer(self) -> list:
+        """Each MoE layer's calls in order, as (probs, gate_idx, keep)."""
+        out = [[] for _ in self.layers]
+        for layer, *rec in self.calls:
+            out[layer].append(tuple(rec))
+        return out
+
+    def forward(self) -> dict:
+        """Each layer's first call: its forward, as ``compare_routes``
+        reads a run (``{"probs": [...]}``)."""
+        return {"probs": [calls[0][0] for calls in self.by_layer()]}
+
+    def choices(self) -> list:
+        """Each layer's chosen experts in its forward, by rank."""
+        return [calls[0][1] for calls in self.by_layer()]
+
+
+def routes_recomputed(watch, layers: int, what: str) -> None:
+    """One train step under ``remat="full"`` routed each of ``layers``
+    MoE layers twice, its forward and its recomputation under
+    ``checkpoint``: the chosen experts (by rank) and kept flags must be
+    equal token for token, or the gradient would mix two routings."""
+    runs = watch.by_layer()
+    if len(runs) != layers:
+        raise AssertionError(f"{what}: {len(runs)} MoE layers watched, "
+                             f"want {layers}")
+    tokens = 0
+    for layer, calls in enumerate(runs):
+        if len(calls) != 2:
+            raise AssertionError(f"{what}: MoE layer {layer} routed "
+                                 f"{len(calls)} times, want 2 (its forward "
+                                 f"and its recomputation)")
+        (_, ia, ka), (_, ib, kb) = calls
+        moved = (ia != ib).any(-1) | (ka != kb).any(-1)
+        if bool(moved.any()):
+            raise AssertionError(f"{what}: MoE layer {layer}'s "
+                                 f"recomputation routed {int(moved.sum())} "
+                                 f"tokens otherwise than its forward")
+        tokens += ia.shape[0] * ia.shape[1]
+    print(f"   {what}: routing of the forward == its recomputation under "
+          f"checkpoint in all {layers} MoE layers, token for token "
+          f"({tokens} token-layers, chosen experts by rank and kept flags)",
+          flush=True)
+
+
+def train_full_width(tr, launches, dev, fa, arch: str = LM_ARCH,
+                     layers=None, scopes=None) -> dict:
+    """``train_loop`` on ``arch`` at full width and depth, or cut to
+    ``layers`` layers (bf16, AdamW, ``remat="full"``), 30 steps on the
+    QUIP stream, with the launch counters set to 0 just before and read
+    just after.  Gates: every loss and every step's gnorm finite, the mean
+    of the last 5 losses below the first, the step counter at 30, bloom
+    launches > 0, no flash-attention launch (the kernel has no backward: a
+    step runs the plain path), every parameter finite after the last step.
+    Prints seconds per step, tokens/s, the peak memory beside its
+    reckoning, then profiles one more step (on an ``embeds`` batch for a
+    family fed embeddings), split by ``scopes`` (default ``tr.scopes``:
+    the plain attention and the SSD scan).  With MoE layers the profiled
+    step's routing is recorded (:class:`RouteWatch`) and each layer's
+    recomputation under ``checkpoint`` must route every token as its
+    forward did (:func:`routes_recomputed`).  Returns the launch counts
+    and the printed figures."""
+    cfg = arch_cut(tr, arch, layers)
+    mem = train_memory(tr, arch, layers)
+    print(f"   {arch}: {cfg.n_layers} layers"
+          + (f" (cut from {tr.get_arch(arch).n_layers})" if layers else "")
+          + f", {cfg.num_params():,} parameters, {cfg.dtype}; reckoning "
           + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in mem.items()),
           flush=True)
     gc.collect()
@@ -2871,42 +3040,53 @@ def train_full_width(tr, launches, dev, fa, arch: str = LM_ARCH) -> dict:
     else:
         batch = {"tokens": ids()}
     batch["labels"] = ids()
-    profile_lm(f"{arch} bf16 train step ({', '.join(batch)})",
-               lambda: step(state, batch)[1]["loss"].item(), top=8,
-               scopes=tr.scopes)
-    del out, state, named, step
+    watch = RouteWatch(tr.moe, state["params"])
+    with watch.run() if routed_layers(cfg) else contextlib.nullcontext():
+        profile_lm(f"{arch} bf16 train step ({', '.join(batch)})",
+                   lambda: step(state, batch)[1]["loss"].item(), top=8,
+                   scopes=tr.scopes if scopes is None else scopes)
+    if routed_layers(cfg):
+        routes_recomputed(watch, routed_layers(cfg),
+                          f"{arch} bf16 profiled train step")
+    del out, state, named, step, watch
     gc.collect()
     torch.cuda.empty_cache()
-    return {"counts": counts, "s_per_step": sec, "tokens_per_s": tokens / sec,
+    return {"counts": counts, "layers": cfg.n_layers,
+            "s_per_step": sec, "tokens_per_s": tokens / sec,
             "first_step_s": first_s, "peak": peak, "reckoned": mem["sum"]}
 
 
-def float64_clipped_grads(tr, cfg, model, batch) -> dict:
-    """The gradients of one step of ``model`` on the CPU in float64 (the
-    model converted in place; its ``.float()`` casts kept in float64, as
-    the CPU twins' float64 runs), clipped by their own float64 norm to 1,
-    as the step clips.  Without remat: every policy gives the same values,
-    and the recomputation would add a quarter to the time."""
+def float64_clipped_grads(tr, cfg, model, batch, impose=None) -> dict:
+    """The gradients of one step of ``model`` in float64 on its device
+    (the model converted in place; its ``.float()`` casts kept in
+    float64, as the CPU twins' float64 runs; TF32 touches no float64
+    product), clipped by their own float64 norm to 1, as the step clips.
+    Without remat: every policy gives the same values, and the
+    recomputation would add a quarter to the time.  ``impose``: each MoE
+    layer's choices, imposed as :class:`RouteWatch` imposes them."""
     to_f32 = torch.Tensor.float
     keep64 = lambda t, *a, **k: (t if t.dtype == torch.float64
                                  else to_f32(t, *a, **k))
-    with patched(torch.Tensor, "float", keep64):
+    routes = RouteWatch(tr.moe, model).run(impose) if impose is not None \
+        else contextlib.nullcontext()
+    with patched(torch.Tensor, "float", keep64), routes:
         _, grads = tr.loss_and_grads(model.double(), cfg, batch, "none")
     norm = float(torch.sqrt(sum((g * g).sum() for g in grads.values())))
     scale = min(1.0, 1.0 / max(norm, 1e-12))
     return {k: g * scale for k, g in grads.items()}
 
 
-def grads_within(got: dict, want: dict, rtol: float, atol_share: float
-                 ) -> tuple:
+def grads_within(got: dict, want: dict, rtol: float, atol_share: float,
+                 device) -> tuple:
     """Each leaf of ``got`` against ``want``'s within ``rtol`` plus
-    ``atol_share`` of the leaf's largest |value|: the leaves that miss,
-    and the largest difference as a share of its leaf's largest, with that
-    leaf's name."""
+    ``atol_share`` of the leaf's largest |value| (on ``device``, a leaf at
+    a time, in ``want``'s dtype): the leaves that miss, and the largest
+    difference as a share of its leaf's largest, with that leaf's name."""
     bad, worst, leaf = [], 0.0, ""
     for k, w in want.items():
+        w = w.to(device)
         top = float(w.abs().max())
-        d = (got[k].to(w.dtype) - w).abs()
+        d = (got[k].to(device, w.dtype) - w).abs()
         if bool((d > rtol * w.abs() + atol_share * top).any()):
             bad.append(k)
         if top and float(d.max()) / top > worst:
@@ -2914,39 +3094,123 @@ def grads_within(got: dict, want: dict, rtol: float, atol_share: float
     return bad, worst, leaf
 
 
+def host_available_gb() -> float:
+    """The host's ``MemAvailable`` in GB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+def adamw_params_gate(card_model, cpu_model, grads, lr: float) -> tuple:
+    """AdamW's first step: every updated parameter within atol 1e-6 of the
+    CPU's, except where the two clipped gradients differ by half the CPU's
+    or more (there ``2 * lr + 1e-6``).  Compared on the card, a leaf at a
+    time.  Returns the failing leaves and a report."""
+    bad, diff, near_zero, near_diff = [], 0.0, 0, 0.0
+    cpu_params = dict(cpu_model.named_parameters())
+    for k, p in card_model.named_parameters():
+        gc_ = grads["cpu"][k].to(p.device)
+        d = (grads["card"][k] - gc_).abs()
+        dp = (p.detach() - cpu_params[k].detach().to(p.device)).abs()
+        near = (d > 0) & (d >= 0.5 * gc_.abs())
+        near_zero += int(near.sum())
+        far_d = float(torch.where(near, 0.0, dp).max())
+        near_d = float(torch.where(near, dp, 0.0).max())
+        if far_d > 1e-6 or near_d > 2 * lr + 1e-6:
+            bad.append(f"{k} parameters")
+        diff, near_diff = max(diff, far_d), max(near_diff, near_d)
+    return bad, (f"largest |parameter difference| {diff:.3g}; {near_zero} "
+                 f"parameters whose gradients differ by half or more, at "
+                 f"most {near_diff:.3g} apart (lr {lr:.3g})")
+
+
+def adafactor_params_gate(tr, start, card_model, cpu_model, grads, lr,
+                          states) -> tuple:
+    """Adafactor's first step: every updated parameter within 1e-6 plus
+    the difference of the two updates that the card's and the CPU's
+    clipped gradients imply, each reckoned by ``adafactor_update`` from
+    the start on a copy (on the card, leaf by leaf: a fresh state's first
+    step reads only its own leaf); the factored ``row`` and ``col``
+    statistics card == CPU within rtol 1e-4.  Returns the failing leaves
+    and a report."""
+    bad, diff, over, implied_max, stat_err = [], 0.0, 0.0, 0.0, 0.0
+    card_params = dict(card_model.named_parameters())
+    cpu_params = dict(cpu_model.named_parameters())
+    for k, p0 in start.named_parameters():
+        implied = []
+        for where in ("card", "cpu"):
+            leaf = {k: p0.detach().clone()}
+            tr.adafactor_update(leaf, {k: grads[where][k].to(p0.device)},
+                                tr.adafactor_init(leaf), lr.to(p0.device))
+            implied.append(leaf[k])
+        implied = (implied[0] - implied[1]).abs()
+        dp = (card_params[k].detach()
+              - cpu_params[k].detach().to(p0.device)).abs()
+        if bool((dp > 1e-6 + implied).any()):
+            bad.append(f"{k} parameters")
+        diff = max(diff, float(dp.max()))
+        over = max(over, float((dp - implied).max()))
+        implied_max = max(implied_max, float(implied.max()))
+        for name, want in states["cpu"]["opt"]["stats"][k].items():
+            if name not in ("row", "col"):
+                continue
+            got = states["card"]["opt"]["stats"][k][name]
+            want = want.to(got.device)
+            err = (got - want).abs() / want.abs().clamp(min=1e-30)
+            stat_err = max(stat_err, float(err.max()))
+            if not bool(torch.allclose(got, want, rtol=1e-4, atol=0)):
+                bad.append(f"{k} {name} statistics")
+    return bad, (f"largest |parameter difference| {diff:.3g}, largest "
+                 f"implied update difference {implied_max:.3g}, largest "
+                 f"excess over it {over:.3g} (at most 1e-6; lr "
+                 f"{float(lr):.3g}); factored statistics card vs CPU, "
+                 f"largest relative difference {stat_err:.3g} (at most "
+                 f"1e-4)")
+
+
 def train_f32_card_vs_cpu(tr, dev, arch: str = LM_ARCH, layers: int = 2,
-                          batch: int = 2, seq: int = 64) -> str:
+                          batch: int = 2, seq: int = 64,
+                          adafactor: bool = False) -> str:
     """``arch``'s widths at ``layers`` layers in float32 (TF32 off), the
     same weights drawn on the card and copied to the CPU: one
     ``build_train_step`` step on each, on ``batch`` x ``seq`` tokens (for a
     family fed embeddings, ``embeds`` drawn on the CPU from a seed and
-    copied).  Gates: loss within rtol 1e-5, gnorm within rtol 1e-4; the
-    clipped gradients (those the step applies, taken from its clip)
-    within rtol 1e-4 plus atol 1e-5 of each leaf's largest |gradient|;
-    every updated parameter within atol 1e-6 of the CPU's, except where
-    the two gradients differ by half the CPU's or more: AdamW's first
-    update is ``lr * g / (|g| + 1e-8)``, about ``±lr`` wherever ``|g| >>
-    1e-8``, so a gradient whose true value is near zero (qwen's key bias
-    on the slowest rotary frequencies) moves its parameter by up to ``2 *
-    lr`` on its f32 rounding noise alone.  There the gate is ``2 * lr +
-    1e-6``.
+    copied).  With ``adafactor`` the optimizer is Adafactor
+    (``optimizer_for`` patched, as the CPU twins force it).  Gates: loss
+    within rtol 1e-5, gnorm within rtol 1e-4; the clipped gradients (those
+    the step applies, taken from its clip) within rtol 1e-4 plus atol 1e-5
+    of each leaf's largest |gradient|; the updated parameters by
+    :func:`adamw_params_gate` (AdamW's first update is ``lr * g / (|g| +
+    1e-8)``, about ``±lr`` wherever ``|g| >> 1e-8``, so a gradient whose
+    true value is near zero moves its parameter by up to ``2 * lr`` on its
+    f32 rounding noise alone) or :func:`adafactor_params_gate`.
+
+    With MoE layers each run's routing is recorded (:class:`RouteWatch`):
+    each layer's recomputation must route as its forward, and the two
+    runs' forwards are held by :func:`compare_routes`.  Where a token
+    still routes otherwise at a near tie (or a kept flag moves), the CPU
+    step is run again with the card's choices imposed (``route``'s
+    ``gate_idx``: the CPU's own probabilities gathered at them) and that
+    step is compared; the number of tokens imposed is printed.
 
     Where a clipped gradient misses its bound, the bound is not widened:
     float32 may not reach it (zamba2's at 14 layers, as its CPU twin
     shows; on the card zamba2's at 12 layers and mamba2's at 4, both at
-    512 tokens).  A float64 gradient of the same step on the CPU
-    (``float64_clipped_grads``) then anchors both: the card's and the
-    CPU's float32 clipped gradients must each be within rtol 1e-4 plus
-    2e-3 of each leaf's largest of it (the CPU twin's bound).  Returns
-    which gradient gate ran."""
+    512 tokens).  A float64 gradient of the same step on the card
+    (``float64_clipped_grads``, with the card's routing imposed) then
+    anchors both: the card's and the CPU's float32 clipped gradients must
+    each be within rtol 1e-4 plus 2e-3 of each leaf's largest of it (the
+    CPU twin's bound).  The comparisons run on the card, a leaf at a
+    time.  Returns which gradient gate ran."""
     import copy
 
     cfg = dataclasses.replace(tr.get_arch(arch), n_layers=layers,
                               dtype="float32")
+    moe = routed_layers(cfg)
     start = tr.init_params(cfg, torch.Generator(device=dev).manual_seed(3),
                            dev)
-    card_model = copy.deepcopy(start)
-    cpu_model = copy.deepcopy(start).to("cpu")
     rng = np.random.default_rng(3)
     ids = lambda: torch.from_numpy(rng.integers(0, cfg.vocab, (batch, seq))
                                    .astype(np.int32))
@@ -2957,64 +3221,114 @@ def train_f32_card_vs_cpu(tr, dev, arch: str = LM_ARCH, layers: int = 2,
         host = {"tokens": ids()}
     host["labels"] = ids()
     card_batch = {k: v.to(dev) for k, v in host.items()}
-    grads, metrics, secs = {}, {}, {}
-    step = tr.build_train_step(cfg)
-    clip = tr.steps.clip_by_global_norm
-    for where, model, b in (("cpu", cpu_model, host),
-                            ("card", card_model, card_batch)):
-        def clip_kept(g, max_norm, where=where):
-            out = clip(g, max_norm)
-            grads[where] = {k: v.detach().cpu() for k, v in out[0].items()}
-            return out
+    with contextlib.ExitStack() as stack:
+        if adafactor:
+            stack.enter_context(patched(tr.steps, "optimizer_for",
+                                        lambda c: "adafactor"))
+        opt = tr.steps.optimizer_for(cfg)
+        size = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+        abstract = tr.abstract_train_state(cfg)
+        state_bytes = 2 * size(abstract["params"].parameters()) \
+            + size(tr.tree_leaves(abstract["opt"]))
+        print(f"   {arch} f32 at {layers} layers, {opt}: the CPU's train "
+              f"state (parameters, gradients, optimizer state) reckons "
+              f"{state_bytes / 1e9:.2f} GB; host MemAvailable "
+              f"{host_available_gb():.2f} GB", flush=True)
+        grads, metrics, secs, models, states, watches = {}, {}, {}, {}, {}, {}
+        step = tr.build_train_step(cfg)
+        clip = tr.steps.clip_by_global_norm
 
-        with patched(tr.steps, "clip_by_global_norm", clip_kept):
-            t0 = time.perf_counter()
-            _, metrics[where] = step(tr.init_train_state(cfg, model), b)
-            float(metrics[where]["loss"])
-            secs[where] = time.perf_counter() - t0
-    mc, mg = metrics["cpu"], metrics["card"]
-    rel = {k: abs(float(mg[k]) - float(mc[k])) / abs(float(mc[k]))
-           for k in ("loss", "gnorm")}
-    lr = float(mg["lr"])
-    grad_bad, grad_err, grad_leaf = grads_within(grads["card"], grads["cpu"],
-                                                 1e-4, 1e-5)
-    bad, diff, near_zero, near_diff = [], 0.0, 0, 0.0
-    card_params = dict(card_model.named_parameters())
-    for k, p in cpu_model.named_parameters():
-        gc_, d = grads["cpu"][k], (grads["card"][k] - grads["cpu"][k]).abs()
-        dp = (card_params[k].detach().cpu() - p.detach()).abs()
-        near = (d > 0) & (d >= 0.5 * gc_.abs())
-        near_zero += int(near.sum())
-        far_d = float(torch.where(near, 0.0, dp).max())
-        near_d = float(torch.where(near, dp, 0.0).max())
-        if far_d > 1e-6 or near_d > 2 * lr + 1e-6:
-            bad.append(f"{k} parameters")
-        diff, near_diff = max(diff, far_d), max(near_diff, near_d)
+        def run(where, b, impose=None):
+            model = copy.deepcopy(start)
+            if where == "cpu":
+                model = model.to("cpu")
+
+            def clip_kept(g, max_norm):
+                out = clip(g, max_norm)
+                grads[where] = {k: v.detach().clone() for k, v in
+                                out[0].items()}
+                return out
+
+            watch = watches[where] = RouteWatch(tr.moe, model)
+            with patched(tr.steps, "clip_by_global_norm", clip_kept), \
+                    (watch.run(impose) if moe else contextlib.nullcontext()):
+                t0 = time.perf_counter()
+                states[where], metrics[where] = step(
+                    tr.init_train_state(cfg, model), b)
+                float(metrics[where]["loss"])
+                secs[where] = time.perf_counter() - t0
+            models[where] = model
+
+        run("cpu", host)
+        run("card", card_batch)
+        imposed = None
+        if moe:
+            for where in ("card", "cpu"):
+                routes_recomputed(watches[where], moe,
+                                  f"{arch} f32 train step ({where})")
+            compare_routes(tr, cfg, watches["card"].forward(),
+                           watches["cpu"].forward(),
+                           "f32 train step card vs CPU")
+            card_routes = watches["card"].choices()
+            moved = sum(int(((a != b.to(a.device)).any(-1)
+                             | (ka != kb.to(ka.device)).any(-1)).sum())
+                        for (_, a, ka), (_, b, kb) in zip(
+                            [c[0] for c in watches["card"].by_layer()],
+                            [c[0] for c in watches["cpu"].by_layer()]))
+            tokens = sum(a.shape[0] * a.shape[1] for a in card_routes)
+            if moved:
+                imposed = [a.cpu() for a in card_routes]
+                t0 = time.perf_counter()
+                run("cpu", host, imposed)
+                print(f"   {moved} of {tokens} token-layers routed otherwise "
+                      f"on the CPU (or kept otherwise): the CPU step run "
+                      f"again with the card's choices imposed on all "
+                      f"{tokens} ({time.perf_counter() - t0:.2f}s)",
+                      flush=True)
+            else:
+                print(f"   0 tokens imposed: the CPU routed all {tokens} "
+                      f"token-layers as the card did", flush=True)
+        mc, mg = metrics["cpu"], metrics["card"]
+        rel = {k: abs(float(mg[k]) - float(mc[k])) / abs(float(mc[k]))
+               for k in ("loss", "gnorm")}
+        grad_bad, grad_err, grad_leaf = grads_within(
+            grads["card"], grads["cpu"], 1e-4, 1e-5, dev)
+        if opt == "adafactor":
+            bad, params_note = adafactor_params_gate(
+                tr, start, models["card"], models["cpu"], grads, mc["lr"],
+                states)
+        else:
+            bad, params_note = adamw_params_gate(
+                models["card"], models["cpu"], grads, float(mg["lr"]))
     shape = "x".join(map(str, host["embeds" if "embeds" in host
                                     else "tokens"].shape))
-    line = (f"{arch} f32 step, {layers} layers, {cfg.num_params():,} "
-            f"parameters, batch {shape}: "
+    line = (f"{arch} f32 step ({opt}), {layers} layers, "
+            f"{cfg.num_params():,} parameters, batch {shape}: "
             f"loss {float(mg['loss']):.6f} (card) / {float(mc['loss']):.6f} "
             f"(CPU), rel {rel['loss']:.3g}; gnorm rel {rel['gnorm']:.3g}; "
             f"largest clipped-gradient difference {grad_err:.3g} of its "
-            f"leaf's largest ({grad_leaf}); largest |parameter difference| "
-            f"{diff:.3g}; {near_zero} parameters whose gradients differ by half "
-            f"or more, at most {near_diff:.3g} apart (lr {lr:.3g}); "
+            f"leaf's largest ({grad_leaf}); {params_note}; "
             f"CPU step {secs['cpu']:.2f}s, card step {secs['card']:.2f}s")
     print("   " + line, flush=True)
     gate = "card == CPU (rtol 1e-4 + 1e-5 of the leaf's largest)"
     if grad_bad:
+        models.clear()
+        states.clear()
         t0 = time.perf_counter()
-        wide = float64_clipped_grads(tr, cfg, start.to("cpu"), host)
-        anchored = {where: grads_within(grads[where], wide, 1e-4, 2e-3)
-                    for where in ("card", "cpu")}
+        wide = float64_clipped_grads(
+            tr, cfg, copy.deepcopy(start), card_batch,
+            watches["card"].choices() if moe else None)
+        anchored = {where: grads_within(grads[where], wide, 1e-4, 2e-3,
+                                        dev) for where in ("card", "cpu")}
+        del wide
         print(f"   {len(grad_bad)} clipped gradients miss card == CPU at "
               f"rtol 1e-4 + 1e-5 of the leaf's largest; against a float64 "
-              f"step on the CPU ({time.perf_counter() - t0:.2f}s): card "
-              f"{anchored['card'][1]:.3g} ({anchored['card'][2]}), CPU "
-              f"{anchored['cpu'][1]:.3g} ({anchored['cpu'][2]}) of the "
-              f"leaf's largest, bound rtol 1e-4 + 2e-3 of the leaf's "
-              f"largest", flush=True)
+              f"step on the card ({time.perf_counter() - t0:.2f}s"
+              + (", the card's routing imposed" if moe else "")
+              + f"): card {anchored['card'][1]:.3g} "
+              f"({anchored['card'][2]}), CPU {anchored['cpu'][1]:.3g} "
+              f"({anchored['cpu'][2]}) of the leaf's largest, bound rtol "
+              f"1e-4 + 2e-3 of the leaf's largest", flush=True)
         bad += [f"{k} gradient (card, against float64)"
                 for k in anchored["card"][0]]
         bad += [f"{k} gradient (CPU, against float64)"
@@ -3025,9 +3339,11 @@ def train_f32_card_vs_cpu(tr, dev, arch: str = LM_ARCH, layers: int = 2,
     if rel["loss"] > 1e-5 or rel["gnorm"] > 1e-4 or bad:
         raise AssertionError(f"the card's f32 step differs from the CPU's "
                              f"({', '.join(bad) or 'loss or gnorm'}): {line}")
-    del start, card_model
+    del start, models, states, watches
+    gc.collect()
     torch.cuda.empty_cache()
-    return gate
+    return gate + (f"; the card's routing imposed on the CPU"
+                   if imposed is not None else "")
 
 
 def train_fault_replay(tr, dev) -> None:
@@ -3094,7 +3410,12 @@ def checkpoint_crossing(tr, cfg, state, dev) -> None:
 def train_phases(tr, launches, dev, fa, clock_mods) -> dict:
     """Slice 10's four phases on qwen2.5-3b, then slice 16's, one for each
     of ``TRAIN_ARCHS``: ``train_loop`` at full width and depth and one f32
-    step card == CPU at the arch's cut (``TRAIN_F32_CUTS``).  Returns the
+    step card == CPU at the arch's cut (``TRAIN_F32_CUTS``); then slice
+    17's, two for each of ``TRAIN_CUTS``: ``train_loop`` at full width and
+    the depth cut there (the profiled step split by the MoE's einsums or
+    the MLA flash; moonshot's routing of each forward held against its
+    recomputation), and one f32 step card == CPU at ``TRAIN_CUT_F32``'s
+    cut (deepseek's under Adafactor).  Returns the
     launch counts of each run that drove the QUIP stream (the pipeline's
     kernel run, then each ``train_loop``), each arch's figures and the
     gradient gate each f32 step ran."""
@@ -3124,13 +3445,35 @@ def train_phases(tr, launches, dev, fa, clock_mods) -> dict:
                                                 seq)
     print(f"   train (slice 16): {time.perf_counter() - t0:.1f}s for its "
           f"{len(TRAIN_ARCHS)} phases", flush=True)
+    t0 = time.perf_counter()
+    scopes = {"moonshot-v1-16b-a3b": tr.scopes + (
+        ("the MoE's einsums (dispatch, experts, combine)", tr.moe,
+         "_einsum_moe", True),),
+        "deepseek-v3-671b": (("the MLA flash (plain, MQA over the latent)",
+                              tr.attn, "flash_attention", True),)}
+    for arch, layers in TRAIN_CUTS.items():
+        with phase(f"train (slice 17): {arch} at full width, {layers} "
+                   f"layers, train_loop {TRAIN}"):
+            assert_card_free(f"{arch} at {layers} layers")
+            runs[arch] = train_full_width(tr, launches, dev, fa, arch, layers,
+                                          scopes[arch])
+        f32_layers, batch, seq, adafactor = TRAIN_CUT_F32[arch]
+        with phase(f"train (slice 17): one f32 step of {arch} at "
+                   f"{f32_layers} layers, {batch} x {seq}, "
+                   f"{'Adafactor (optimizer_for patched)' if adafactor else 'AdamW'}"
+                   f", card == CPU"):
+            gates[arch] = train_f32_card_vs_cpu(tr, dev, arch, f32_layers,
+                                                batch, seq, adafactor)
+    print(f"   train (slice 17): {time.perf_counter() - t0:.1f}s for its "
+          f"{2 * len(TRAIN_CUTS)} phases", flush=True)
     return {"launches": [pipe] + [r["counts"] for r in runs.values()],
             "runs": runs, "gates": gates}
 
 
 def print_train_runs(train: dict) -> None:
     for arch, run in train["runs"].items():
-        print(f"   train: {arch} {run['s_per_step']:.4f} s/step, "
+        print(f"   train: {arch} ({run['layers']} layers) "
+              f"{run['s_per_step']:.4f} s/step, "
               f"{run['tokens_per_s']:.1f} tokens/s, first step "
               f"{run['first_step_s']:.3f}s, peak {run['peak'] / 1e9:.2f} GB "
               f"against {run['reckoned'] / 1e9:.2f} GB reckoned; f32 step's "
@@ -3143,6 +3486,10 @@ def print_train_runs(train: dict) -> None:
 SSM_ARCH = "mamba2-370m"
 SSM_PARAMS = 368_025_600  # the reference's num_params() for mamba2-370m
 SSM_PROMPT = 512  # two chunks of 256: the state crosses a chunk boundary
+# decode == prefill over SSM_PROMPT tokens runs at this depth (a decode
+# step's host dispatch grows with the depth): 12 SSD layers of mamba2;
+# zamba2's first 12 layers use its shared attention block twice
+DECODE_LAYERS = 12
 
 
 def lint_clean(lint) -> None:
@@ -3166,8 +3513,9 @@ def f32_card_vs_cpu(dev, lm, fa, arch: str, params: int,
     reference tree's leaves when ``tree``); a 1 x 512 prefill on the card
     (the CUDA-core kernel in every attention layer, the counters set to 0
     just before) against the same weights and tokens on the CPU (the
-    plain path); decode over the 512 tokens against the card's prefill.
-    Returns the kernel's launches in the card's prefill."""
+    plain path); then, at ``DECODE_LAYERS`` layers (other weights from a
+    seed), decode over the 512 tokens against the card's prefill.
+    Returns the kernel's launches in the full-depth prefill."""
     import copy
 
     cfg = dataclasses.replace(lm.get_arch(arch), dtype="float32",
@@ -3217,25 +3565,32 @@ def f32_card_vs_cpu(dev, lm, fa, arch: str, params: int,
               f"{cpu_s:.3f}s", flush=True)
         close_logits(card.cpu(), cpu, f"f32 prefill {tuple(toks.shape)} "
                      f"card vs CPU")
-        caches = lm.init_caches(cfg, 1, SSM_PROMPT, device=dev)
+        del model
+        cut = dataclasses.replace(cfg, n_layers=DECODE_LAYERS)
+        model = lm.init_params(cut, torch.Generator(device=dev)
+                               .manual_seed(1), dev)
+        card = lm.prefill(model, cut, {"tokens": toks})
+        caches = lm.init_caches(cut, 1, SSM_PROMPT, device=dev)
         t0 = time.perf_counter()
         for t in range(SSM_PROMPT):
             pos = torch.full((1,), t, dtype=torch.int32, device=dev)
-            logits, caches = lm.decode_step(model, caches, cfg,
+            logits, caches = lm.decode_step(model, caches, cut,
                                             toks[:, t:t + 1], pos)
         torch.cuda.synchronize()
-        print(f"   decode of {SSM_PROMPT} tokens: "
+        print(f"   decode of {SSM_PROMPT} tokens at {DECODE_LAYERS} layers "
+              f"({attention_layers(cut)} attention): "
               f"{time.perf_counter() - t0:.3f}s", flush=True)
         close_logits(logits, card, f"f32 decode over a {SSM_PROMPT}-token "
-                     f"prompt vs its prefill on the card")
+                     f"prompt vs its prefill on the card, {DECODE_LAYERS} "
+                     f"layers")
     del model, caches
     torch.cuda.empty_cache()
     return launches
 
 
 def ssm_bf16_serve(dev, lm) -> dict:
-    """mamba2-370m as configured (bf16): one decode step profiled past a
-    128-token prompt at serve_batch's batch, then ``serve_batch``."""
+    """mamba2-370m as configured (bf16): one decode step profiled after
+    ``DECODE_WARMUP`` steps at serve_batch's batch, then ``serve_batch``."""
     cfg = lm.get_arch(SSM_ARCH)
     model = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                            dev)
@@ -3245,10 +3600,11 @@ def ssm_bf16_serve(dev, lm) -> dict:
         toks = torch.randint(0, cfg.vocab, (b, 1), device=dev,
                              generator=torch.Generator(device=dev)
                              .manual_seed(1))
-        for p in range(t):
+        for p in range(DECODE_WARMUP):
             pos = torch.full((b,), p, dtype=torch.int32, device=dev)
             lm.decode_step(model, caches, cfg, toks, pos)
-        profile_lm(f"{SSM_ARCH} bf16 decode step (batch {b}, position {t})",
+        profile_lm(f"{SSM_ARCH} bf16 decode step (batch {b}, position "
+                   f"{DECODE_WARMUP})",
                    lambda: lm.decode_step(model, caches, cfg, toks, pos + 1),
                    top=6)
     del model, caches
@@ -3279,16 +3635,15 @@ NEAR_TIE = 1e-5  # a 6th-to-7th router probability margin this small
 
 
 class PrefillWatch:
-    """By run name: each MoE layer's router probabilities (``probs``:
-    forward hooks on the MoE blocks' ``ln2``, whose output is the MoE's
-    input; one entry a layer a call) and the residual stream just after
-    the first attention layer (``after_attention``: the input of the next
-    block's ``ln1``, or of the final norm; one entry a call)."""
+    """By run name: each MoE layer's router probabilities (``probs``: one
+    entry a layer a call, as :class:`RouteWatch` records them) and the
+    residual stream just after the first attention layer
+    (``after_attention``: the input of the next block's ``ln1``, or of the
+    final norm; one entry a call)."""
 
     def __init__(self, lm, model, cfg):
-        self.lm = lm
+        self.lm, self.model = lm, model
         specs = lm.layer_specs(model.segs)
-        self.blocks = [b for b, spec in zip(model.blocks, specs) if spec.moe]
         first = next((i for i, spec in enumerate(specs)
                       if spec.kind != "ssm"), None)
         self.after = None
@@ -3300,19 +3655,18 @@ class PrefillWatch:
     @contextlib.contextmanager
     def run(self, name: str):
         rec = self.runs.setdefault(name, {"probs": [], "after_attention": []})
-        moe = self.lm.moe
-        handles = [b.ln2.register_forward_hook(
-            lambda m, i, o, b=b: rec["probs"].append(
-                moe.router_probs(b.mlp, moe.groups(o))))
-            for b in self.blocks]
+        routes = RouteWatch(self.lm.moe, self.model)
+        handle = None
         if self.after is not None:
-            handles.append(self.after.register_forward_hook(
-                lambda m, i, o: rec["after_attention"].append(i[0].float())))
+            handle = self.after.register_forward_hook(
+                lambda m, i, o: rec["after_attention"].append(i[0].float()))
         try:
-            yield
+            with routes.run():
+                yield
         finally:
-            for h in handles:
-                h.remove()
+            if handle is not None:
+                handle.remove()
+            rec["probs"] += [probs for _, probs, _, _ in routes.calls]
 
 
 def _choices(routing, e: int):
@@ -3963,7 +4317,7 @@ def dsv3_bf16_run(dev, lm) -> dict:
         b_, t = SERVE["batch"], SERVE["prompt_len"]
         caches = lm.init_caches(cfg, b_, t + SERVE["gen"], device=dev)
         dtoks = toks[:1, :b_].reshape(b_, 1)
-        for p in range(t):
+        for p in range(DECODE_WARMUP):
             pos = torch.full((b_,), p, dtype=torch.int32, device=dev)
             lm.decode_step(model, caches, cfg, dtoks, pos)
         with watch.run("decode"):
@@ -3975,7 +4329,7 @@ def dsv3_bf16_run(dev, lm) -> dict:
               f"{weights / HBM_BYTES_PER_S * 1e3:.2f} ms over the memory",
               flush=True)
         profile_lm(f"{DSV3_ARCH} bf16 decode step (batch {b_}, position "
-                   f"{t + 1})",
+                   f"{DECODE_WARMUP + 1}, a cache of {t + SERVE['gen']})",
                    lambda: lm.decode_step(model, caches, cfg, dtoks,
                                           pos + 2), top=6)
     mixer, h = model.blocks[0].mixer, first["h"]
@@ -4079,10 +4433,6 @@ GEMMA2 = "gemma2-27b"
 S15_F32_LAYERS = 4  # the f32 twins' depth (gemma2: two local, two global)
 #: gemma2's f32 prefill, longer than its local layers' 4,096-key window
 GEMMA2_F32_SEQ = 6144
-#: decode steps before the profiled one (slices 4, 11-13 take 128): the
-#: decode attention reads the whole cache under a mask, so a step's work
-#: does not depend on its position
-S15_WARMUP = 16
 
 
 def s15_counts(lm) -> None:
@@ -4215,7 +4565,7 @@ def slice15(dev, lm, fa, kref) -> dict:
                       else ", decode step, serve_batch")):
             if arch == GEMMA2:
                 assert_card_free(f"{arch} bf16")
-            runs[arch] = lm_bf16_run(dev, lm, fa, arch, warmup=S15_WARMUP)
+            runs[arch] = lm_bf16_run(dev, lm, fa, arch)
         print(f"   slice 15: {arch} {time.perf_counter() - t_arch:.1f}s",
               flush=True)
     with phase("slice 15: flash_attention times at the five archs' prefill "
@@ -4392,6 +4742,7 @@ def main() -> int:
         from repro_torch.models import mamba as mamba_mod
         from repro_torch.models import moe as moe_mod
         from repro_torch.models.transformer import layer_specs
+        from repro_torch.optim import adafactor_init, adafactor_update
         from repro_torch.launch.mesh import make_host_mesh
         from repro_torch.runtime.elastic import place_state, reshard_state
         from repro_torch.sharding.axes import distribute, param_specs
@@ -4427,7 +4778,8 @@ def main() -> int:
         build_serve_step=train_steps.build_serve_step,
         loss_and_grads=train_steps.loss_and_grads,
         init_train_state=train_steps.init_train_state, steps=train_steps,
-        uses_embeds=uses_embeds,
+        uses_embeds=uses_embeds, moe=moe_mod, attn=attn_mod,
+        adafactor_init=adafactor_init, adafactor_update=adafactor_update,
         scopes=(("attention (plain path)", attn_mod, "flash_attention", True),
                 ("the scan's elementwise work", mamba_mod, "_ssd_chunk_scan",
                  False)),
@@ -4561,17 +4913,21 @@ def main() -> int:
 
     with recording(kops, kd) as rec:
         with phase("end to end: wifi at full scale, slice 1"):
-            s1_wifi, wifi1 = end_to_end(
+            s1_wifi, wifi1, wifi1_plain = end_to_end(
                 "wifi", wifi, wifi_q, dev, mods, launches, SLICE1, PLAIN1,
                 ("bloom_probe", "masked_knn"), "slice 1",
                 off_path=("masked_distance",))
+        # slice 2's kernel path is held against slice 1's plain run (the
+        # same tables, queries and imputer); the plain join and
+        # aggregation members are held end to end on cdc's slice 2, and
+        # against their kernels in the unit phases at the main path's shapes
         with phase("end to end: wifi at full scale, slice 2 (join and "
-                   "aggregation on the card)"):
-            s2_wifi, wifi2 = end_to_end(
-                "wifi", wifi, wifi_q, dev, mods, launches, SLICE2, PLAIN2,
+                   "aggregation on the card), against slice 1's plain run"):
+            s2_wifi, wifi2, _ = end_to_end(
+                "wifi", wifi, wifi_q, dev, mods, launches, SLICE2, PLAIN1,
                 ("bloom_probe", "masked_knn", "hash_join_build",
                  "hash_join_probe", "neighbor_mode"), "slice 2",
-                off_path=("masked_distance",))
+                off_path=("masked_distance",), plain=wifi1_plain)
             for i, (a, b) in enumerate(zip(wifi1, wifi2)):
                 if a[0] != b[0]:
                     raise AssertionError(f"wifi q{i}: slice 2's answer "
@@ -4579,29 +4935,32 @@ def main() -> int:
             print("   wifi: slice 2's answers equal slice 1's on all six "
                   "queries", flush=True)
         with phase("end to end: cdc, one NHANES cycle, slice 1"):
-            s1_cdc, _ = end_to_end(
+            s1_cdc, _, _ = end_to_end(
                 "cdc", cdc, cdc_q, dev, mods, launches, SLICE1, PLAIN1,
                 ("masked_knn",), "slice 1", off_path=("masked_distance",))
         with phase("end to end: cdc, one NHANES cycle, slice 1 with "
                    "KnnImputer(k=33), the unfused route"):
-            s1_cdc_k33, _ = end_to_end(
+            s1_cdc_k33, _, _ = end_to_end(
                 "cdc", cdc, cdc_q, dev, mods, launches, UNFUSED1,
                 UNFUSED_PLAIN1, ("masked_distance",), "slice 1 k=33",
                 off_path=("masked_knn",))
         with phase("end to end: cdc, one NHANES cycle, slice 2"):
-            s2_cdc, _ = end_to_end(
+            s2_cdc, _, _ = end_to_end(
                 "cdc", cdc, cdc_q, dev, mods, launches, SLICE2, PLAIN2,
                 ("masked_knn", "hash_join_build", "hash_join_probe",
                  "neighbor_mean"), "slice 2", off_path=("masked_distance",))
         with phase("end to end: wifi at full scale, slice 3 (compiled "
-                   "plans, segment reduce on the card)"):
-            s3_wifi, wifi3 = end_to_end(
-                "wifi", wifi, wifi_q, dev, mods, launches, SLICE3, PLAIN3,
-                ("masked_knn", "hash_join_build", "hash_join_probe",
-                 "neighbor_mode", "segment_reduce"), "slice 3",
-                off_path=("bloom_probe", "masked_distance"))
+                   "plans, segment reduce on the card), against plain join, "
+                   "aggregation and segment members"):
+            s3_wifi, wifi3, _ = end_to_end(
+                "wifi", wifi, wifi_q, dev, mods, launches, SLICE3,
+                PLAIN3_KNN, ("masked_knn", "hash_join_build",
+                             "hash_join_probe", "neighbor_mode",
+                             "segment_reduce"), "slice 3",
+                off_path=("bloom_probe", "masked_distance"),
+                plain_kernels=("masked_knn",))
         with phase("end to end: cdc, one NHANES cycle, slice 3"):
-            s3_cdc, _ = end_to_end(
+            s3_cdc, _, _ = end_to_end(
                 "cdc", cdc, cdc_q, dev, mods, launches, SLICE3, PLAIN3,
                 ("masked_knn", "hash_join_build", "hash_join_probe",
                  "neighbor_mean", "segment_reduce"), "slice 3",

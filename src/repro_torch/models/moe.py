@@ -110,16 +110,23 @@ def router_probs(p: MoE, tokens: torch.Tensor) -> torch.Tensor:
     return torch.softmax(tokens.float() @ p.router, dim=-1)
 
 
-def route(probs: torch.Tensor, cfg: ArchConfig) -> Routing:
+def route(probs: torch.Tensor, cfg: ArchConfig,
+          gate_idx: Optional[torch.Tensor] = None) -> Routing:
     """Top-k gates of (G, S, E) ``probs``, renormalised, and each choice's
     place in its expert's queue (tokens in order, a token's choices in
-    rank order) against the capacity."""
+    rank order) against the capacity.
+
+    ``gate_idx`` (G, S, k), another run's choices, replaces the top-k;
+    either way the gates are ``probs`` gathered at the chosen experts, so
+    the router keeps its gradient.  The reference has no such option; it
+    lets two runs that part at a near tie be compared on one routing."""
     n_groups, g_sz, e = probs.shape
     k = cfg.top_k
-    # a stable descending sort: ties to the lowest expert, as lax.top_k
-    gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True,
-                                     stable=True)
-    gate_vals, gate_idx = gate_vals[..., :k], gate_idx[..., :k]
+    if gate_idx is None:
+        # a stable descending sort: ties to the lowest expert, as lax.top_k
+        gate_idx = torch.sort(probs, dim=-1, descending=True,
+                              stable=True).indices[..., :k]
+    gate_vals = torch.gather(probs, -1, gate_idx)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
     cap = max(int(g_sz * k * cfg.capacity_factor / e), 1)

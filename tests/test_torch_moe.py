@@ -179,6 +179,85 @@ def test_moe_apply_takes_a_routing(impl):
     _close(half - shared, (plain - shared) / 2, 1e-5)
 
 
+@pytest.mark.parametrize("impl", ["einsum", "scatter"])
+def test_route_imposing_its_own_choices_is_route(impl):
+    """``route(probs, cfg, gate_idx=)`` given the call's own top-k gives
+    ``route``'s routing bit for bit, and ``moe_apply`` on it the same
+    output and the same gradient for the router and for the input.
+    At ``capacity_factor`` 0.5 a third of the choices are dropped, so the
+    queue positions and the kept flags are held too."""
+    cfg, _, block = _moe(11, moe_impl=impl, capacity_factor=0.5)
+    port_cfg = config_from_reference(cfg)
+    x0 = _t(_x(cfg, 1, 48, seed=11))
+    weights = _t(_x(cfg, 1, 48, seed=12))
+    runs = []
+    for imposed in (False, True):
+        block.zero_grad(set_to_none=True)
+        block.requires_grad_(True)
+        x = x0.clone().requires_grad_(True)
+        probs = tmoe.router_probs(block, tmoe.groups(x))
+        r = tmoe.route(probs, port_cfg)
+        if imposed:
+            r = tmoe.route(probs, port_cfg, gate_idx=r.gate_idx.clone())
+        out = tmoe.moe_apply(block, port_cfg, x, routing=r)
+        (out * weights).sum().backward()
+        runs.append((r, out.detach(), block.router.grad.clone(),
+                     x.grad.clone()))
+    (ra, oa, ga, xa), (rb, ob, gb, xb) = runs
+    assert ra.cap == rb.cap
+    for name in ("gate_vals", "gate_idx", "pos", "keep"):
+        assert torch.equal(getattr(ra, name), getattr(rb, name)), name
+    assert 0 < int((~ra.keep).sum()) < ra.keep.numel()
+    assert torch.equal(oa, ob)
+    assert float(ga.abs().max()) > 0
+    assert torch.equal(ga, gb)
+    assert torch.equal(xa, xb)
+
+
+def test_route_imposing_a_flipped_token_moves_only_its_queues():
+    """One token's last choice replaced by an expert it did not choose:
+    only that token's choices and gates change, and the queue positions
+    behind it in the two experts' queues (the old expert's one place
+    forward, the new one's one place back); every other position, and
+    every gate but where a token's kept flag moved, stays as it was."""
+    cfg, _, block = _moe(13, capacity_factor=0.5)
+    port_cfg = config_from_reference(cfg)
+    k, e = cfg.top_k, cfg.n_experts
+    with torch.no_grad():
+        probs = tmoe.router_probs(block, tmoe.groups(_t(_x(cfg, 1, 48,
+                                                           seed=13))))
+        r = tmoe.route(probs, port_cfg)
+        tok = 20
+        old = int(r.gate_idx[0, tok, k - 1])
+        new = next(x for x in range(e) if x not in r.gate_idx[0, tok])
+        idx = r.gate_idx.clone()
+        idx[0, tok, k - 1] = new
+        f = tmoe.route(probs, port_cfg, gate_idx=idx)
+    assert torch.equal(f.gate_idx, idx)
+    assert f.cap == r.cap
+    # the queue order: tokens in order, a token's choices in rank order
+    order = torch.arange(48 * k).reshape(1, 48, k)
+    here = int(order[0, tok, k - 1])
+    want = r.pos.clone()
+    want[(order > here) & (r.gate_idx == old)] -= 1
+    want[(order > here) & (r.gate_idx == new)] += 1
+    want[0, tok, k - 1] = int(((order < here) & (r.gate_idx == new)).sum())
+    assert torch.equal(f.pos, want)
+    assert torch.equal(f.keep, f.pos < f.cap)
+    moved = (f.pos != r.pos).any(-1)[0]
+    assert bool(moved[tok + 1:].any()) and not bool(moved[:tok].any())
+    other = torch.ones(48, dtype=torch.bool)
+    other[tok] = False
+    same_keep = (f.keep == r.keep).all(-1)[0] & other
+    assert bool((f.keep != r.keep).any())
+    assert torch.equal(f.gate_vals[0, same_keep], r.gate_vals[0, same_keep])
+    assert not torch.equal(f.gate_vals[0, tok], r.gate_vals[0, tok])
+    chosen = probs[0, tok].gather(-1, idx[0, tok])
+    assert torch.allclose(f.gate_vals[0, tok],
+                          chosen / chosen.sum() * f.keep[0, tok],
+                          rtol=0, atol=0)
+
+
 def test_decode_capacity_drops_tokens():
     """At decode a call routes ``B`` tokens with a capacity of
     ``max(int(B·k·cf/E), 1)``: 2 at B = 4 here, so of 4 tokens that all
