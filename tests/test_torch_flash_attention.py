@@ -154,6 +154,53 @@ def test_chunked_flash_twin(b, s, h, kv, d, case):
     _close(got, want, 2e-4)
 
 
+#: FLASH_CASES' softcapped and windowed cases, and both at once.  At q_chunk
+#: 16, k_chunk 32 and s = 100 the query blocks from position 64 on skip the
+#: key block 0-31 whole: 31 <= 64 - 24 (window 24), and 31 <= 63 - 20 for
+#: the q_offset case (47 queries cached, window 20)
+GRAD_CASES = {name: FLASH_CASES[name] for name in (
+    "softcap", "window", "q_offset window softcap")}
+GRAD_CASES["window softcap"] = dict(causal=True, window=24, softcap=30.0)
+LOGITS = "bqkrd,bckd->bkrqc"  # models/flash.py's einsum of one key block
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+def test_chunked_flash_grad_twin(monkeypatch, case):
+    """dq, dk and dv of the chunked online softmax for a seeded cotangent
+    against ``jax.vjp`` of the reference's (its ``lax.cond`` skips),
+    through the softcap's tanh, the in-block masks, the rescale across key
+    blocks and, with a window, the key blocks skipped left of it: the port
+    computes fewer key blocks than without the window (its logits einsums
+    counted)."""
+    b, s, h, kv, d = 2, 100, 4, 2, 16
+    kw = dict(GRAD_CASES[case])
+    sq = s // 2 + 3 if kw.pop("offset", False) else s
+    q, k, v = _qkv(b, s, h, kv, d, seed=5 * s + d, sq=sq)
+    ct = np.random.default_rng(s + d).normal(size=q.shape).astype(np.float32)
+    kw.update(q_offset=s - sq, q_chunk=16, k_chunk=32)
+    _, vjp = jax.vjp(lambda *a: jax_flash.flash_attention(*a, **kw),
+                     *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(ct))
+    blocks, einsum = [], torch.einsum
+
+    def counted(eq, *ops):
+        blocks.append(eq == LOGITS)
+        return einsum(eq, *ops)
+
+    monkeypatch.setattr(torch, "einsum", counted)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = port_flash.flash_attention(tq, tk, tv, **kw)
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(ct))
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == w.shape, name
+        _close(g, w, 2e-4)
+    if "window" in kw:
+        kept = sum(blocks)
+        blocks.clear()
+        port_flash.flash_attention(tq, tk, tv, **dict(kw, window=None))
+        assert 0 < kept < sum(blocks)
+
+
 def test_chunked_flash_skips_blocks_like_the_kernel():
     """Causal block skipping changes no value: the chunked softmax equals
     the plain version at chunk sizes that skip most blocks."""

@@ -103,12 +103,17 @@ def _close_named(got: dict, ref_tree, model, rtol, atol, what=""):
 # --------------------------------------------------------------------------- #
 # the train step against the reference's
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("arch", DENSE)
-def test_train_step_twin(arch):
+@pytest.mark.parametrize("arch,seq", [pytest.param(a, 24, id=a)
+                                      for a in DENSE] + [
+    pytest.param("gemma2-27b", 80, id="gemma2-27b-s80")])
+def test_train_step_twin(arch, seq):
     """Three steps from the same state: the losses, gnorm, lr, and the
     parameters and moments after; before each step the gradients of both
     packages at the reference's parameters of that step (the two runs'
-    parameters part by rounding, which the gradients would amplify)."""
+    parameters part by rounding, which the gradients would amplify).
+    gemma2 also runs 80 tokens, past its reduced local window of 32: with
+    chunks of 16 the query blocks from 48 on skip the key block 0-15
+    whole (15 <= 48 - 32), so the window's backward is held too."""
     cfg, ref_state = _reference_state(arch)
     start = _numpy(ref_state["params"])
     state = train_state_from_reference(_numpy(ref_state), cfg, device="cpu")
@@ -118,7 +123,7 @@ def test_train_step_twin(arch):
     ref_grad = jax.jit(jax.grad(
         lambda p, b: jax_loss_fn(p, cfg, b, remat="full")))
     step = S.build_train_step(port_cfg, **HPARAMS)
-    for i, batch in enumerate(_batches(cfg, 3, seed=1)):
+    for i, batch in enumerate(_batches(cfg, 3, s=seq, seed=1)):
         jb, tb = _to_jax(batch), _to_port(batch)
         at_ref = params_from_reference(_numpy(ref_state["params"]), cfg,
                                        device="cpu")
