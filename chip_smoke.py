@@ -191,7 +191,7 @@ bfloat16 with random weights drawn on the card: gemma-7b (the
 tensor-core kernel at D 256), qwen3-8b (qk-norm; 32 query heads over 8
 KV heads), pixtral-12b (fed (B, S, 5120) ``embeds``, the VLM frontend's
 stub), hubert-xlarge (an encoder fed ``embeds``: non-causal attention at
-D 80, which runs the CUDA-core kernel in bfloat16 too) and gemma2-27b
+D 80, on the tensor-core kernel since slice 19) and gemma2-27b
 (local and global layers, attention and logit softcaps: its attention
 reaches no kernel, as in the reference; 54.45 GB drawn once under 1 GB is
 held on the card).  Each arch's ``num_params()`` must equal the
@@ -209,7 +209,9 @@ materialised prefills (no launch; the residual after the first attention
 layer and the logits' cosine gated), profile, decode step,
 ``serve_batch``.  The kernel is checked against its plain version at the
 three new prefill calls and at head widths 80 and 96 on the grid, and
-timed at the three calls beside SDPA and its bound.
+timed at the three calls beside SDPA and its bound; at hubert's call the
+CUDA-core kernel, which ran it before slice 19, is held and timed on the
+same bf16 inputs.
 ``python3 chip_smoke.py --slice15`` runs the attention checks and slice
 15's phases alone.
 
@@ -1442,14 +1444,17 @@ ATTN_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (8e-3, 1e-3)}
 MHA_CALLS = ((LM_BATCH, LM_SEQ, 32, 32, 64), (LM_BATCH, LM_SEQ, 16, 16, 128))
 # slice 15's prefill calls, (shape, causal): gemma-7b (D 256, multi-head),
 # qwen3-8b and pixtral-12b (32 heads over 8 KV heads, D 128) and
-# hubert-xlarge (D 80, an encoder: non-causal; the CUDA-core kernel in bf16
-# too, D 80 being no tensor-core width)
+# hubert-xlarge (D 80, an encoder: non-causal; in bf16 the tensor-core
+# kernel since slice 19, in two column blocks of 64, the second zero-filled
+# past column 80; in float32 the CUDA-core kernel)
+HUBERT_CALL = ((LM_BATCH, LM_SEQ, 16, 16, 80), False)
 S15_CALLS = (((LM_BATCH, LM_SEQ, 16, 16, 256), True),
-             ((LM_BATCH, LM_SEQ, 32, 8, 128), True),
-             ((LM_BATCH, LM_SEQ, 16, 16, 80), False))
+             ((LM_BATCH, LM_SEQ, 32, 8, 128), True), HUBERT_CALL)
 # head widths that are no power of two, on the grid: the CUDA-core kernel's
 # accumulator columns (ceil(D / 16) rounded up to a power of two) partly
-# unused
+# unused.  The CUDA-core kernel is held at each where it is the route:
+# 96 in both dtypes, 80 in float32 (bf16 at 80 is the tensor-core
+# kernel's, held with TENSOR_CORE_HEAD_DIMS)
 ODD_HEAD_DIMS = (80, 96)
 MATMUL_NAMES = ("gemm", "cutlass", "xmma", "nvjet", "cublas", "wgmma")
 
@@ -1485,12 +1490,14 @@ def attention_err(fa, kref, q, k, v, causal, window, what: str) -> float:
 def check_attention(dev, fa, kref) -> dict:
     """The kernels against their plain version on the reference tests' grid
     in float32 and bfloat16 (the CUDA-core kernel: head widths 8-32), on
-    the same grid at the tensor-core kernel's head widths 64, 128 and 256
-    in bfloat16 and at head widths 80 and 96 (``ODD_HEAD_DIMS``) in both,
-    at the slice's call in bfloat16 and float32 (64 key tiles, no window),
-    at a padded, windowed call in both, at zamba2's and moonshot's
-    multi-head calls (``MHA_CALLS``) and at slice 15's calls
-    (``S15_CALLS``) in both; returns the largest |difference| by dtype."""
+    the same grid at the tensor-core kernel's head widths
+    (``TENSOR_CORE_HEAD_DIMS``: 64, 80, 128 and 256) in bfloat16 and at
+    head widths 80 and 96 (``ODD_HEAD_DIMS``) wherever the CUDA-core kernel
+    is the route, at the slice's call in bfloat16 and float32 (64 key
+    tiles, no window), at padded, windowed calls (S 1000, window 256) at D
+    128 and 80 in both, at zamba2's and moonshot's multi-head calls
+    (``MHA_CALLS``) and at slice 15's calls (``S15_CALLS``) in both;
+    returns the largest |difference| by dtype."""
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for shape in ATTN_GRID:
         for causal, window in ATTN_MASKS:
@@ -1514,30 +1521,36 @@ def check_attention(dev, fa, kref) -> dict:
                     f"{shape[:4]} D={d} bf16 causal={causal} "
                     f"window={window}"))
     err[torch.bfloat16] = max(err[torch.bfloat16], tc_err)
-    print(f"   tensor-core flash_attention == plain on the grid at D 64, 128 "
-          f"and 256 (bf16, 3 masks): max |diff| {tc_err:.3g}", flush=True)
+    print(f"   tensor-core flash_attention == plain on the grid at D "
+          f"{', '.join(map(str, fa.TENSOR_CORE_HEAD_DIMS))} (bf16, 3 "
+          f"masks): max |diff| {tc_err:.3g}", flush=True)
     odd = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    odd_cases = [(d, dtype) for d in ODD_HEAD_DIMS for dtype in odd
+                 if fa.route(dtype, d) == "cuda_core"]
     for shape in ATTN_GRID:
-        for d in ODD_HEAD_DIMS:
+        for d, dtype in odd_cases:
             for causal, window in ATTN_MASKS:
-                for dtype in odd:
-                    q, k, v = attention_inputs(dev, *shape[:4], d, dtype,
-                                               sum(shape) + d)
-                    odd[dtype] = max(odd[dtype], attention_err(
-                        fa, kref, q, k, v, causal, window,
-                        f"{shape[:4]} D={d} {dtype} causal={causal} "
-                        f"window={window}"))
+                q, k, v = attention_inputs(dev, *shape[:4], d, dtype,
+                                           sum(shape) + d)
+                odd[dtype] = max(odd[dtype], attention_err(
+                    fa, kref, q, k, v, causal, window,
+                    f"{shape[:4]} D={d} {dtype} causal={causal} "
+                    f"window={window}"))
     for dtype, e in odd.items():
         err[dtype] = max(err[dtype], e)
-    print(f"   CUDA-core flash_attention == plain on the grid at D "
-          f"{' and '.join(map(str, ODD_HEAD_DIMS))} (3 masks): max |diff| "
-          f"f32 {odd[torch.float32]:.3g}, bf16 {odd[torch.bfloat16]:.3g}",
-          flush=True)
+    print(f"   CUDA-core flash_attention == plain on the grid at "
+          + ", ".join(f"D {d} {str(dtype).split('.')[-1]}"
+                      for d, dtype in odd_cases)
+          + f" (3 masks): max |diff| f32 {odd[torch.float32]:.3g}, bf16 "
+          f"{odd[torch.bfloat16]:.3g}", flush=True)
     for shape, dtype, causal, window in (
             ((LM_BATCH, LM_SEQ, 16, 2, 128), torch.bfloat16, True, None),
             ((LM_BATCH, LM_SEQ, 16, 2, 128), torch.float32, True, None),
             ((1, 1000, 16, 2, 128), torch.float32, True, 256),
             ((1, 1000, 16, 2, 128), torch.bfloat16, True, 256),
+            ((1, 1000, 16, 16, 80), torch.float32, True, 256),
+            ((1, 1000, 16, 16, 80), torch.bfloat16, True, 256),
+            ((1, 1000, 16, 16, 80), torch.bfloat16, False, 256),
             *((shape, dtype, True, None) for shape in MHA_CALLS
               for dtype in (torch.bfloat16, torch.float32)),
             *((shape, dtype, causal, None) for shape, causal in S15_CALLS
@@ -1585,6 +1598,36 @@ def cuda_core_attention(build, q, k, v, causal=True, window=None):
     return out
 
 
+def tensor_vs_cuda_core(build, kref, q, k, v, t, causal: bool) -> None:
+    """At a bf16 call that routes to the tensor-core kernel, timed in ``t``
+    (:func:`attention_times`): that kernel's executed work (128 x 128
+    tiles, P.V twice for P_hi and P_lo) and rate; then the CUDA-core kernel
+    on the same inputs, held to the bf16 limits against the plain version
+    and timed beside its FP32 peak's bound.  Adds ``cuda_core_ms`` and
+    ``cuda_core_err`` to ``t``."""
+    b, s, h, d = q.shape
+    executed = 4 * b * h * d * 1.5 * executed_pairs(s, causal, 128, 128)
+    print(f"   tensor-core kernel: {executed / 1e9:.1f} GFLOP executed, "
+          f"{executed / t['ms'] / 1e9:.1f} TFLOP/s executed", flush=True)
+    cc = cuda_core_attention(build, q, k, v, causal).float()
+    want = kref.attention_ref(q, k, v, causal=causal).float()
+    rtol, atol = ATTN_TOL[q.dtype]
+    diff = (cc - want).abs()
+    if not torch.isfinite(cc).all() or bool(
+            (diff > atol + rtol * want.abs()).any()):
+        raise AssertionError(f"the CUDA-core kernel differs from the plain "
+                             f"version at {t['shape']}: max |diff| "
+                             f"{float(diff.max())}")
+    t["cuda_core_err"] = float(diff.max())
+    t["cuda_core_ms"] = cuda_ms(
+        lambda: cuda_core_attention(build, q, k, v, causal), reps=10)
+    print(f"   CUDA-core kernel on the same bf16 call: "
+          f"{t['cuda_core_ms']:.4f} ms "
+          f"({t['ops'] / t['cuda_core_ms'] / 1e9:.1f} TFLOP/s; at the FP32 "
+          f"peak the bound is {t['ops'] / FP32_OPS_PER_S * 1e3:.4f} ms), "
+          f"max |diff| {t['cuda_core_err']:.3g}", flush=True)
+
+
 def time_attention(dev, fa, kref, build):
     """The slice's call, (2, 4096, 16, 2, 128) causal: in bf16 the
     tensor-core kernel (the route), the CUDA-core kernel on the same inputs,
@@ -1595,28 +1638,9 @@ def time_attention(dev, fa, kref, build):
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, t = attention_times(dev, fa, kref,
                                      (LM_BATCH, LM_SEQ, 16, 2, 128), dtype)
-        b, s, h, kv, d = q.shape[:3] + k.shape[2:]
-        ops = 4 * b * h * d * kept_pairs(s, True, None)
         name = "bf16" if dtype == torch.bfloat16 else "f32"
         if dtype == torch.bfloat16:
-            # the tensor-core kernel's executed work: 128 x 128 tiles, P.V
-            # twice (P_hi and P_lo)
-            executed = 4 * b * h * d * 1.5 * executed_pairs(s, True, 128, 128)
-            print(f"   tensor-core kernel: {executed / 1e9:.1f} GFLOP "
-                  f"executed, {executed / t['ms'] / 1e9:.1f} TFLOP/s "
-                  f"executed", flush=True)
-            cc = cuda_core_attention(build, q, k, v).float()
-            want = kref.attention_ref(q, k, v).float()
-            rtol, atol = ATTN_TOL[dtype]
-            if bool(((cc - want).abs() > atol + rtol * want.abs()).any()):
-                raise AssertionError("the CUDA-core kernel differs from the "
-                                     "plain version at the bf16 slice call")
-            t["cuda_core_ms"] = cuda_ms(
-                lambda: cuda_core_attention(build, q, k, v), reps=10)
-            print(f"   CUDA-core kernel on the same bf16 call: "
-                  f"{t['cuda_core_ms']:.4f} ms "
-                  f"({ops / t['cuda_core_ms'] / 1e9:.1f} TFLOP/s), max "
-                  f"|diff| {float((cc - want).abs().max()):.3g}", flush=True)
+            tensor_vs_cuda_core(build, kref, q, k, v, t, True)
         out[name] = t
         del q, k, v
         torch.cuda.empty_cache()
@@ -4661,14 +4685,21 @@ def gemma2_f32_check(dev, lm, fa) -> None:
     torch.cuda.empty_cache()
 
 
-def s15_times(dev, fa, kref) -> list:
+def s15_times(dev, fa, kref, build) -> list:
     """The kernel at slice 15's three bf16 prefill calls (``S15_CALLS``),
     timed beside its plain version, SDPA and the bound
-    (:func:`attention_times`); the CUDA-core route's time is also set
-    beside the FP32 peak's bound."""
+    (:func:`attention_times`); a CUDA-core route's time is also set beside
+    the FP32 peak's bound.  At hubert's call (``HUBERT_CALL``), which the
+    CUDA-core kernel ran before slice 19, that kernel is held and timed on
+    the same inputs (:func:`tensor_vs_cuda_core`), so that both routes
+    stand in one run on one card."""
     out = []
     for shape, causal in S15_CALLS:
-        t = attention_times(dev, fa, kref, shape, torch.bfloat16, causal)[3]
+        q, k, v, t = attention_times(dev, fa, kref, shape, torch.bfloat16,
+                                     causal)
+        if (shape, causal) == HUBERT_CALL:
+            tensor_vs_cuda_core(build, kref, q, k, v, t, causal)
+        del q, k, v
         torch.cuda.empty_cache()
         print(f"   flash_attention at {t['shape']} ({t['route']} kernel): "
               f"median kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
@@ -4681,7 +4712,7 @@ def s15_times(dev, fa, kref) -> list:
     return out
 
 
-def slice15(dev, lm, fa, kref) -> dict:
+def slice15(dev, lm, fa, kref, build) -> dict:
     """Slice 15's phases: the parameter counts; for gemma-7b, qwen3-8b,
     pixtral-12b and hubert-xlarge the float32 twin at ``S15_F32_LAYERS``
     layers (:func:`lm_f32_check`) and the bf16 run at full width and depth
@@ -4723,7 +4754,7 @@ def slice15(dev, lm, fa, kref) -> dict:
               flush=True)
     with phase("slice 15: flash_attention times at the five archs' prefill "
                "calls"):
-        times = s15_times(dev, fa, kref)
+        times = s15_times(dev, fa, kref, build)
     print(f"   slice 15: {time.perf_counter() - t_s15:.1f}s for its phases",
           flush=True)
     return {"runs": runs, "f32": f32, "times": times}
@@ -4972,7 +5003,7 @@ def main() -> int:
     if slice15_only:  # the attention checks and slice 15's phases alone
         with phase("flash_attention against its plain version"):
             check_attention(dev, fa, kref)
-        slice15(dev, lm, fa, kref)
+        slice15(dev, lm, fa, kref, build)
         print(card)
         return 0
     if train_only:  # the training phases alone (slices 10, 16, 17, 18)
@@ -5301,7 +5332,7 @@ def main() -> int:
         reshard_on_nccl(dev, lm, sh)
     print(f"   slice 13: {time.perf_counter() - t_s13:.1f}s for its four "
           f"phases", flush=True)
-    s15 = slice15(dev, lm, fa, kref)
+    s15 = slice15(dev, lm, fa, kref, build)
     t_s14 = time.perf_counter()
     with phase(f"dry run vs card (slice 14): {LM_ARCH} prefill and train "
                f"step traced on a (1, 1) fake world, then counted on the "
@@ -5357,8 +5388,10 @@ def main() -> int:
               + (f"serve_batch {SERVE} {served['tok_per_s']:.1f} tok/s "
                  f"(decode {served['decode_s']:.3f}s)" if served else
                  "encoder-only"))
-    # the bf16 launches by route: hubert's D 80 runs the CUDA-core kernel,
-    # the same kernel as the float32 calls, and counts under its entry
+    # the bf16 launches by route: hubert's D 80 runs the tensor-core kernel
+    # since slice 19 and counts under flash_attention; a bf16 width on the
+    # CUDA-core kernel would count under flash_attention_f32, the entry of
+    # that kernel, as would the CUDA-core kernel's error at hubert's call
     by_route = {route: [r for a, r in s15_runs.items() if fa.route(
         torch.bfloat16, get_arch(a).resolved_head_dim) == route]
         for route in fa.ROUTES}
@@ -5367,8 +5400,11 @@ def main() -> int:
     s15_err = {route: max([t["err"] for t in s15["times"]
                            if t["route"] == route]
                           + [r["held"]["max_abs"] for r in by_route[route]
-                             if r["held"] is not None])
+                             if r["held"] is not None], default=0.0)
                for route in fa.ROUTES}
+    s15_err["cuda_core"] = max([s15_err["cuda_core"]]
+                               + [t["cuda_core_err"] for t in s15["times"]
+                                  if "cuda_core_err" in t])
     print(f"   slice 15 launches by route: bf16 tensor core {s15_tc}, bf16 "
           f"CUDA core {s15_cc}, f32 CUDA core {sum(s15['f32'].values())}")
     print(f"total {time.perf_counter() - t_start:.1f}s", flush=True)

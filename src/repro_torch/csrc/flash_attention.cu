@@ -27,8 +27,9 @@
 // = 0 wipes that, as in the reference (-inf would give inf - inf = NaN).
 // The output is acc / max(l, 1e-30), written in q's dtype.
 //
-// Its route (kernels/flash_attention.py): float32, and bf16 at head widths
-// other than 64, 128 and 256; bf16 at those widths runs the tensor-core
+// Its route (kernels/flash_attention.py): float32 at every head width
+// (hubert-xlarge's D 80 included), and bf16 at head widths other than 64,
+// 80, 128 and 256 (D 96, say); bf16 at those widths runs the tensor-core
 // kernel (flash_attention_tc.cu).
 //
 // What bounds it on an H100: operations.  At the slice's call in float32

@@ -1,8 +1,8 @@
 // Flash attention on the tensor cores, for bfloat16 q/k/v: grouped-query,
 // causal and/or sliding-window online-softmax attention that never writes
-// the score matrix to memory.  The float32 route, and head widths other
-// than 64, 128 and 256, stay on the CUDA-core kernel (flash_attention.cu);
-// kernels/flash_attention.py picks the route.
+// the score matrix to memory.  Head widths 64, 80, 128 and 256.  The
+// float32 route, and the other head widths, stay on the CUDA-core kernel
+// (flash_attention.cu); kernels/flash_attention.py picks the route.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py
 // (flash_attention_pallas), as flash_attention.cu does: q (B, S, H, D) and
@@ -15,7 +15,10 @@
 // tensor cores' 989 TFLOP/s; q/k/v/o are 75 MB, 0.023 ms at 3.35 TB/s.
 // The kernel executes more: whole 128 x 128 tiles on the diagonal, and
 // P.V twice (below), 4 * B * H * D * 1.5 * (tile pairs * 128^2) =
-// 4 * 2 * 16 * 128 * 1.5 * 8,650,752 = 213 GFLOP.
+// 4 * 2 * 16 * 128 * 1.5 * 8,650,752 = 213 GFLOP.  At hubert-xlarge's
+// encoder call (B 2, S 4096, H 16, KV 16, D 80, non-causal) the function
+// needs 4 * 2 * 16 * 80 * 4096^2 = 171.8 GFLOP, 0.174 ms; the kernel
+// executes 1.5 times that, 257.7 GFLOP (P.V twice; no tile is partial).
 //
 // Design (a CTA of 384 threads per (128-row query tile, query head,
 // batch); longest causal tiles first):
@@ -31,7 +34,13 @@
 //     O += P.V by wgmma m64nDk16 with P from registers and V read
 //     MN-major through the transpose bit;
 //   - tiles wholly above the diagonal or left of the window are skipped;
-//     others are masked only where a key can fall outside.
+//     others are masked only where a key can fall outside;
+//   - a head is held as ceil(D / 64) column blocks of 64, one TMA box
+//     each.  At D 80 the tensor map's D extent is 80, so TMA zero-fills
+//     the second block's columns 80-127 (and counts them in the bytes a
+//     load completes); Q.K^T takes five k16 steps, the fifth on block 1,
+//     and P.V one n80 product over block 0 and 16 columns of block 1: the
+//     products execute D 80's work, not D 128's.
 // Numerics: the check this kernel is held to (rtol 8e-3, atol 1e-3 against
 // the f32 plain version) allows one bf16 rounding, the output's.  Rounding
 // P to bf16 before P.V, FlashAttention's usual step, adds a second and
@@ -132,6 +141,31 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 80, f32) += A (64 x 16, registers) * B (16 x 80, shared,
+// MN-major: the transpose bit): the 64 columns of block 0 and the first 16
+// of block 1, LBO apart
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D (64 x 128, f32) += A (64 x 16, registers) * B (16 x 128, shared,
 // MN-major: the transpose bit)
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
@@ -228,10 +262,12 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
   if constexpr (N == 64) {
     wgmma_rs_n64(d, a, db);
+  } else if constexpr (N == 80) {
+    wgmma_rs_n80(d, a, db);
   } else if constexpr (N == 128) {
     wgmma_rs_n128(d, a, db);
   } else {
-    static_assert(N == 256, "head widths 64, 128, 256");
+    static_assert(N == 256, "head widths 64, 80, 128, 256");
     wgmma_rs_n256(d, a, db);
   }
 }
@@ -311,17 +347,26 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// column blocks of 64 (one TMA box, one 128-byte swizzled row each) that
+// hold a head of width D; TMA zero-fills a last block's columns past D
+__host__ __device__ constexpr int col_blocks(int d) {
+  return (d + 63) / 64;
+}
+
 template <int D, int BK>
 constexpr size_t tc_smem_bytes() {
   // 1 KB of slack to align the tiles to 1024 bytes (the swizzle's period),
-  // Q, the K and V rings, then the barriers
-  return 1024 + static_cast<size_t>(kBQ) * D * 2 +
-         2 * static_cast<size_t>(kStages) * BK * D * 2 + 64;
+  // Q, the K and V rings at the padded width, then the barriers
+  constexpr size_t dp = col_blocks(D) * 64;
+  return 1024 + static_cast<size_t>(kBQ) * dp * 2 +
+         2 * static_cast<size_t>(kStages) * BK * dp * 2 + 64;
 }
 
-// Shared memory: Q as D/64 column blocks of (128 rows x 128 bytes), K and
-// V per stage as D/64 column blocks of (BK rows x 128 bytes), each block
-// 128-byte swizzled as TMA writes it.
+// Shared memory: Q as ceil(D/64) column blocks of (128 rows x 128 bytes),
+// K and V per stage as ceil(D/64) column blocks of (BK rows x 128 bytes),
+// each block 128-byte swizzled as TMA writes it.  At D 80 the second block
+// holds columns 64-79 and 48 zero columns, which no product reads: Q.K^T
+// stops at depth D, P.V's n80 at column D.
 template <int D, int BK>
 __global__ void __launch_bounds__(kThreadsTC, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -329,9 +374,12 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap vmap,
                           __nv_bfloat16* __restrict__ out, int S, int H,
                           int KV, int causal, int window, float scale_log2) {
-  constexpr int kCB = D / 64;
-  constexpr uint32_t kQBytes = kBQ * D * 2;
-  constexpr uint32_t kKVBytes = BK * D * 2;
+  static_assert(D % 16 == 0, "Q.K^T walks the depth in steps of 16");
+  constexpr int kCB = col_blocks(D);
+  // whole boxes, zero-filled columns included: what TMA writes and what
+  // each load's expect_tx must count, or the barrier never completes
+  constexpr uint32_t kQBytes = kBQ * kCB * 128;
+  constexpr uint32_t kKVBytes = BK * kCB * 128;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -625,7 +673,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace
 
 // q (B, S, H, D), k/v (B, S, KV, D), out (B, S, H, D): contiguous bfloat16,
-// D 64, 128 or 256, H a multiple of KV.  window <= 0 means no window.
+// D 64, 80, 128 or 256, H a multiple of KV.  window <= 0 means no window.
 // Launches on `stream` and returns cudaGetLastError() as an int, or 9999
 // when libcuda's tensor-map encoder is missing, or 10000 + its CUresult
 // when it refuses a map.
@@ -640,6 +688,9 @@ extern "C" int quipt_flash_attention_tc(const void* q, const void* k,
   switch (D) {
     case 64:
       return launch_tc<64, 128>(q, k, v, out, B, S, H, KV, causal, window,
+                                scale, st);
+    case 80:
+      return launch_tc<80, 128>(q, k, v, out, B, S, H, KV, causal, window,
                                 scale, st);
     case 128:
       return launch_tc<128, 128>(q, k, v, out, B, S, H, KV, causal, window,

@@ -1,13 +1,15 @@
 """Flash attention (GQA, causal / sliding window): the wrapper of two CUDA
 kernels, picked by ``route`` on (dtype, head width):
 
-* ``"tensor_core"`` -- bfloat16 with D in {64, 128, 256}:
+* ``"tensor_core"`` -- bfloat16 with D in {64, 80, 128, 256}:
   ``csrc/flash_attention_tc.cu`` (``wgmma`` products, TMA loads, a producer
   warpgroup; P split into two bf16 terms so the only bf16 rounding that
-  reaches the output is its own);
-* ``"cuda_core"`` -- float32 (any D up to 256; float32 must stay within
-  2e-4 of the plain version, so it takes no TF32 or bf16 products) and
-  bfloat16 at the other head widths: ``csrc/flash_attention.cu``.
+  reaches the output is its own; D 80, hubert-xlarge's, in two column
+  blocks of 64 whose last 48 columns TMA fills with zeros);
+* ``"cuda_core"`` -- float32 (any D up to 256, D 80 included; float32 must
+  stay within 2e-4 of the plain version, so it takes no TF32 or bf16
+  products) and bfloat16 at the other head widths (D 96, say):
+  ``csrc/flash_attention.cu``.
 
 Both replace the reference package's Pallas kernel ``flash_attention_pallas``
 (``repro/kernels/flash_attention.py``).  The wrapper is the custom op
@@ -42,8 +44,10 @@ launches = 0
 route_launches = {"tensor_core": 0, "cuda_core": 0}
 
 ROUTES = ("tensor_core", "cuda_core")
-#: head widths the tensor-core kernel takes (its tiles are 64 columns wide)
-TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
+#: head widths the tensor-core kernel takes (its tiles are 64 columns wide;
+#: D 80 fills two, the second zero-padded): the ``case`` labels of
+#: ``quipt_flash_attention_tc``'s ``switch (D)``
+TENSOR_CORE_HEAD_DIMS = (64, 80, 128, 256)
 
 #: the largest head width the kernel takes (its shared-memory tiles)
 MAX_HEAD_DIM = 256
@@ -86,7 +90,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel a CUDA call runs: ``"tensor_core"`` for bfloat16 at a head
-    width of 64, 128 or 256, else ``"cuda_core"``."""
+    width of 64, 80, 128 or 256, else ``"cuda_core"``."""
     if dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS:
         return "tensor_core"
     return "cuda_core"

@@ -761,7 +761,7 @@ def test_flash_attention_kernel_equals_plain(cuda_device, b, s, h, kv, d,
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-_TC_SHAPES = [(b, s, h, kv, d) for d in (64, 128, 256)
+_TC_SHAPES = [(b, s, h, kv, d) for d in (64, 80, 128, 256)
               for s in (100, 1000, 4096)
               for (b, h, kv) in ((1, 4, 4), (2, 4, 2), (1, 8, 1))]
 _TC_MASKS = [(True, None), (False, None), (True, 256)]
@@ -773,7 +773,7 @@ _BF16_RTOL, _BF16_ATOL = 8e-3, 1e-3
 @pytest.mark.parametrize("causal,window", _TC_MASKS)
 def test_tensor_core_attention_equals_plain(cuda_device, b, s, h, kv, d,
                                             causal, window):
-    """bf16 at D 64/128/256, S 100/1000/4096, GQA rep 1, 2 and 8, causal,
+    """bf16 at D 64/80/128/256, S 100/1000/4096, GQA rep 1, 2 and 8, causal,
     non-causal and window 256, held to one bf16 rounding of the output."""
     assert fa.route(torch.bfloat16, d) == "tensor_core"
     rng = np.random.default_rng(s + d + h)
@@ -791,11 +791,15 @@ def test_tensor_core_attention_equals_plain(cuda_device, b, s, h, kv, d,
 
 
 def test_attention_routes_on_card(cuda_device):
-    """bf16 at D = 128 launches the tensor-core kernel; float32 (and bf16
-    at a width it does not take) the CUDA-core one."""
+    """bf16 at D = 128 and 80 launches the tensor-core kernel; float32 (D
+    80 too) and bf16 at a width it does not take (40, 96) the CUDA-core
+    one."""
     for dtype, d, which in ((torch.bfloat16, 128, "tensor_core"),
+                            (torch.bfloat16, 80, "tensor_core"),
                             (torch.float32, 128, "cuda_core"),
-                            (torch.bfloat16, 40, "cuda_core")):
+                            (torch.float32, 80, "cuda_core"),
+                            (torch.bfloat16, 40, "cuda_core"),
+                            (torch.bfloat16, 96, "cuda_core")):
         q = torch.randn(1, 64, 4, d, device=cuda_device).to(dtype)
         k = torch.randn(1, 64, 2, d, device=cuda_device).to(dtype)
         before = dict(fa.route_launches)

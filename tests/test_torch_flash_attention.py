@@ -12,6 +12,9 @@ chunked and materialised softmaxes sum in other orders), 3e-2 in bfloat16,
 
 from __future__ import annotations
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,8 +31,9 @@ from repro_torch.kernels import ref as kref
 from repro_torch.models import flash as port_flash
 from repro_torch.models import layers as port_layers
 
+#: the last is hubert-xlarge's head width, D 80 (multi-head, as its layers)
 KERNEL_SHAPES = [(1, 16, 2, 1, 8), (2, 64, 4, 2, 16), (1, 96, 8, 2, 32),
-                 (2, 100, 4, 4, 16)]
+                 (2, 100, 4, 4, 16), (1, 64, 2, 2, 80)]
 MASKS = [(True, None), (False, None), (True, 24)]
 
 
@@ -277,15 +281,16 @@ def test_softcap_and_dense_init():
 # --------------------------------------------------------------------------- #
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
-    (torch.bfloat16, 256, "tensor_core"), (torch.bfloat16, 32, "cuda_core"),
-    (torch.bfloat16, 40, "cuda_core"), (torch.bfloat16, 192, "cuda_core"),
-    (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core"),
-    (torch.float32, 256, "cuda_core"),
+    (torch.bfloat16, 256, "tensor_core"), (torch.bfloat16, 80, "tensor_core"),
+    (torch.bfloat16, 32, "cuda_core"), (torch.bfloat16, 40, "cuda_core"),
+    (torch.bfloat16, 96, "cuda_core"), (torch.bfloat16, 192, "cuda_core"),
+    (torch.float32, 64, "cuda_core"), (torch.float32, 80, "cuda_core"),
+    (torch.float32, 128, "cuda_core"), (torch.float32, 256, "cuda_core"),
 ])
 def test_kernel_route(dtype, d, want):
-    """bf16 at D 64/128/256 goes to the tensor-core kernel; float32 (held
-    to 2e-4, so no bf16 or TF32 products) and other widths to the CUDA-core
-    one.  A CPU tensor launches neither."""
+    """bf16 at D 64/80/128/256 goes to the tensor-core kernel; float32
+    (held to 2e-4, so no bf16 or TF32 products) and other widths to the
+    CUDA-core one.  A CPU tensor launches neither."""
     assert fa.route(dtype, d) == want
     assert want in fa.ROUTES
     q = torch.zeros(1, 8, 2, d, dtype=dtype)
@@ -295,15 +300,31 @@ def test_kernel_route(dtype, d, want):
     assert (fa.launches, fa.route_launches) == before
 
 
+def test_tensor_core_widths_match_the_cuda_switch():
+    """The ``case`` labels of ``quipt_flash_attention_tc``'s ``switch (D)``
+    are ``TENSOR_CORE_HEAD_DIMS``: the route never sends a width the kernel
+    refuses, and the kernel takes none the route never sends."""
+    src = (Path(fa.__file__).resolve().parent.parent / "csrc"
+           / "flash_attention_tc.cu").read_text()
+    entry = src[src.index('extern "C" int quipt_flash_attention_tc('):]
+    switch = entry[entry.index("switch (D)"):entry.index("default:")]
+    cases = tuple(int(c) for c in re.findall(r"case (\d+):", switch))
+    assert cases == fa.TENSOR_CORE_HEAD_DIMS
+    # each case launches its own instantiation at that width
+    for d in cases:
+        assert re.search(rf"case {d}:\s*return launch_tc<{d}, \d+>", switch)
+
+
 # chip_smoke.py's bf16 limits: one rounding step of the output
 _BF16_RTOL, _BF16_ATOL = 8e-3, 1e-3
 
 
-def _tensor_core_emulation(q, k, v, split_p: bool, bk: int = 128):
-    """The tensor-core kernel's arithmetic in plain torch, causal: bf16
-    inputs, f32 scores in base 2 over 128-key tiles, the online softmax, P
-    rounded to bf16 for P.V (as one term, or split into P_hi + P_lo), f32
-    accumulation, the output rounded once to bf16."""
+def _tensor_core_emulation(q, k, v, split_p: bool, bk: int = 128,
+                           causal: bool = True):
+    """The tensor-core kernel's arithmetic in plain torch, causal or not:
+    bf16 inputs, f32 scores in base 2 over 128-key tiles, the online
+    softmax, P rounded to bf16 for P.V (as one term, or split into P_hi +
+    P_lo), f32 accumulation, the output rounded once to bf16."""
     b, s, h, d = q.shape
     rep = h // k.shape[2]
     scale = (1.0 / d ** 0.5) * 1.4426950408889634
@@ -317,7 +338,8 @@ def _tensor_core_emulation(q, k, v, split_p: bool, bk: int = 128):
     for k_lo in range(0, s, bk):
         kpos = torch.arange(k_lo, min(k_lo + bk, s))[None, :]
         x = (qf @ kf[:, :, k_lo:k_lo + bk].transpose(-1, -2)) * scale
-        x = torch.where(kpos <= qpos, x, torch.tensor(-1e30))
+        if causal:
+            x = torch.where(kpos <= qpos, x, torch.tensor(-1e30))
         m_new = torch.maximum(m, x.amax(-1, keepdim=True))
         alpha = torch.exp2(m - m_new)
         p = torch.exp2(x - m_new)
@@ -349,3 +371,19 @@ def test_split_p_keeps_one_rounding_step():
     bad = (single - want).abs() > limit
     assert int(bad.sum()) > 0
     assert int(bad.nonzero()[:, 1].min()) < 256  # an early row
+
+
+def test_split_p_holds_at_hubert_width():
+    """At hubert-xlarge's head width and mask (D 80, multi-head,
+    non-causal), P split into two bf16 terms holds chip_smoke.py's bf16
+    limits against the plain version over eight 128-key tiles."""
+    rng = np.random.default_rng(1)
+    b, s, h, kv, d = 1, 1024, 2, 2, 80
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .bfloat16()
+               for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
+    want = kref.attention_ref(q, k, v, causal=False).float()
+    split = _tensor_core_emulation(q, k, v, split_p=True,
+                                   causal=False).float()
+    bad = (split - want).abs() > _BF16_ATOL + _BF16_RTOL * want.abs()
+    assert not bool(bad.any()), float((split - want).abs().max())
